@@ -6,15 +6,24 @@
 Phases (any failure raises and exits non-zero):
   1. environment: torch/CUDA/nvcc versions, triton, the card's name and
      power limit, whether the native host library loaded;
-  2. build: both CUDA kernels (K1 emission, K2 segment) from
-     hipstr_tpu_torch/csrc with nvcc;
+  2. build: the four CUDA kernels (K1 emission, K2 segment, K4 flank scan,
+     K3 fused segment) from hipstr_tpu_torch/csrc, one nvcc each, all at
+     once;
   3. each kernel against its plain PyTorch version on the card, float32
      and float64, at the main-path shape and a deep shape, with times;
-  4. the slice: `hipstr_tpu_torch.cli` in-process on 60 simulated 30x
-     trio loci (float32, --batch-loci 32); 60/60 genotyped, both kernels
-     launched at least twice per dispatch, JAX never imported;
-  5. float64 cross-check: the port's VCF on the dataset behind
-     tests/data/torch_port_ref_f64.vcf against that file.
+  4. the batched slice: `hipstr_tpu_torch.cli` in-process on 60 simulated
+     30x trio loci (float32, --batch-loci 32); 60/60 genotyped, K1 and K2
+     launched at least twice per dispatch, K3 and K4 never, JAX never
+     imported;
+  5. the sequential slice: the same run with --batch-loci 0; 60/60
+     genotyped, per aligner call two K1 and four K4 launches, no K2 or K3;
+  6. the two per-locus modes on the 60 real loci: the first-round
+     alignment of each in float64, flank mode (K4) against fused mode
+     (K3), LL within 1e-8;
+  7. the sequential run without a stutter model (host EM) on 8 loci;
+  8. float64 cross-check: the port's VCF on the dataset behind
+     tests/data/torch_port_ref_f64.vcf, batched and sequential, against
+     that file.
 
 Prints the kernel summary as one JSON line, then as the last line
 {"ok": true, "device": {...}}.  Needs one visible CUDA card.
@@ -39,12 +48,32 @@ SLICE_READS = 170
 # rounding differs.  float32: the same reassociation over sums of up to
 # Bmax (K1) or ~R rows x L lanes (K2) terms of magnitude up to ~1e3
 # accumulates ~n * 2^-24 relative error, ~1e-4 at these depths.
+# K4 and K3 follow the rows of the plain version in the same order (f64
+# 1e-9 and 1e-8, the tolerances of tests/test_pallas_hmm.py), and share
+# K2's float32 bound.
 TOL = {("emission", "float64"): (1e-10, 1e-10),
        ("segment", "float64"): (1e-8, 1e-8),
+       ("flank_scan", "float64"): (1e-9, 1e-9),
+       ("segment_scan", "float64"): (1e-8, 1e-8),
        ("emission", "float32"): (1e-4, 1e-3),
-       ("segment", "float32"): (1e-4, 1e-3)}
+       ("segment", "float32"): (1e-4, 1e-3),
+       ("flank_scan", "float32"): (1e-4, 1e-3),
+       ("segment_scan", "float32"): (1e-4, 1e-3)}
 MAIN = dict(G=32, O=8, P=64, L=128, Bmax=64, H=8)
 DEEP = dict(MAIN, P=256)
+SCAN_DEEP_P = 1024   # K3/K4 deep shape: the largest pool bucket
+MODES_TOL = 1e-8     # flank vs fused LL, float64 (rtol and atol)
+EM_LOCI = 8
+SOURCES = {   # kernel -> (source, the TPU kernel it replaces)
+    "emission": ("hipstr_tpu_torch/csrc/emission.cu",
+                 "hipstr_tpu/ops/pallas_emission.py:62"),
+    "segment": ("hipstr_tpu_torch/csrc/segment.cu",
+                "hipstr_tpu/ops/pallas_hmm2.py:69"),
+    "flank_scan": ("hipstr_tpu_torch/csrc/flank_scan.cu",
+                   "hipstr_tpu/ops/pallas_hmm.py:55"),
+    "segment_scan": ("hipstr_tpu_torch/csrc/segment_scan.cu",
+                     "hipstr_tpu/ops/pallas_hmm.py:130"),
+}
 SENTINEL = -1.0e20   # values at or below are NEG-derived padding
 
 
@@ -89,12 +118,13 @@ def phase_env():
 # ---------------------------------------------------------------- phase 2
 def phase_build():
     from hipstr_tpu_torch import kernels
-    for name in ("emission", "segment"):
-        t0 = time.perf_counter()
-        kernels.library(name)
+    t0 = time.perf_counter()
+    kernels.build_all()
+    log(f"built {len(kernels.LAUNCHES)} kernels in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for name in kernels.LAUNCHES:
         info = kernels.BUILD_INFO[name]
-        log(f"built {name}: {time.perf_counter() - t0:.2f} s "
-            f"(nvcc {info['seconds']:.2f} s)")
+        log(f"built {name}: nvcc {info['seconds']:.2f} s")
         for line in info["ptxas"].splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas: {line.strip()}")
@@ -185,9 +215,9 @@ def check_emission(shape, dtype_name, device, rng):
     return err, ms, plain_ms
 
 
-def real_meta(tmp):
-    """Forward-orientation row metadata of one real locus of the slice's
-    dataset, through the main path's host code and prepare_locus."""
+def real_locus(tmp):
+    """One real locus of the slice's dataset, packed through the main
+    path's host code and prepare_locus: (arrays, statics)."""
     from hipstr_tpu_torch.host import (GenotyperPipeline, Logger,
                                        PipelineOptions, StutterModel,
                                        read_regions)
@@ -200,9 +230,7 @@ def real_meta(tmp):
     region = read_regions(f"{tmp}/regions.bed", 1)[0]
     g = p.prepare_locus_genotyper(region, p.fasta.get_sequence(region.chrom))
     seqs, quals, seeds = g.pool_inputs()
-    arrays, statics = prepare_locus(g.align_haplotype(), seqs, quals, seeds,
-                                    "float32")
-    return arrays[2], statics
+    return prepare_locus(g.align_haplotype(), seqs, quals, seeds, "float32")
 
 
 def check_segment(shape, dtype_name, device, rng, fw, statics):
@@ -253,25 +281,103 @@ def check_segment(shape, dtype_name, device, rng, fw, statics):
     return err, ms, plain_ms, R
 
 
+def scan_inputs(P, dtype_name, device, rng, arrays, statics):
+    """K4/K3 inputs with the forward row structure, H, L and repeat options
+    of a real locus and P random reads."""
+    import torch
+    from hipstr_tpu_torch.device import resolve_dtype
+    from hipstr_tpu_torch.ops.hmm import HapMeta, expand_quals, shift_right
+    dt = resolve_dtype(dtype_name)
+    R, sr, period = statics[0], statics[2], statics[4]
+    L = arrays[0].codes.shape[1]
+    codes, quals, last = (x[0] for x in reads(rng, 1, P, L, device, period))
+    blw, blc = expand_quals(quals, dt)
+    C = torch.cumsum(blc, dim=-1)
+    meta = HapMeta(*[to_device(x, device, dt) for x in arrays[2]])
+    return ((codes.int().contiguous(), blw, blc, C, shift_right(C, 0.0),
+             last.int().contiguous()), meta, R, sr, period)
+
+
+def check_flank_scan(P, dtype_name, device, rng, arrays, statics):
+    """K4 over the phase-1 rows of a real locus from its row-0 state."""
+    from hipstr_tpu_torch.ops.hmm import IMPOSSIBLE, emit_locus
+    from hipstr_tpu_torch.ops.hmm_scan import (flank_scan_kernel,
+                                               flank_scan_plain)
+    import torch
+    rd, meta, R, sr, _ = scan_inputs(P, dtype_name, device, rng, arrays,
+                                     statics)
+    codes, blw, blc, C, Csh, _ = rd
+    M = emit_locus(codes, meta.row_char[:, 0], blc, blw) + Csh[:, None]
+    state = (M, C[:, None].expand(M.shape).contiguous(),
+             torch.full_like(M, IMPOSSIBLE))
+    rows = [x[:, 1:sr].T.contiguous() for x in (
+        meta.row_char, meta.row_m2m, meta.row_m2i, meta.row_m2d)]
+    args = (*rd, *rows, meta.row_active[1:sr], *state)
+    got = flank_scan_kernel(*args)
+    ref = flank_scan_plain(*args)
+    torch.cuda.synchronize()
+    err = max(compare("flank_scan", g, r, dtype_name)
+              for g, r in zip(got, ref))
+    ms = cuda_ms(lambda: flank_scan_kernel(*args), 5)
+    plain_ms = cuda_ms(lambda: flank_scan_plain(*args), 2)
+    return err, ms, plain_ms
+
+
+def check_segment_scan(P, dtype_name, device, rng, arrays, statics):
+    """K3 over the forward orientation of a real locus (E from K1)."""
+    import torch
+    from hipstr_tpu_torch.ops.emission import stutter_emissions
+    from hipstr_tpu_torch.ops.hmm_scan import (segment_scan_kernel,
+                                               segment_scan_plain)
+    rd, meta, R, sr, period = scan_inputs(P, dtype_name, device, rng,
+                                          arrays, statics)
+    codes, blw, blc = rd[:3]
+    periods = torch.full((1,), period, dtype=torch.int32, device=device)
+    E = stutter_emissions(codes[None], blw[None], blc[None],
+                          meta.rep_rev_codes.int()[None],
+                          meta.rep_len.int()[None], periods)[0]
+    args = (*rd, meta, E, R, sr, period)
+    got = segment_scan_kernel(*args)
+    ref = segment_scan_plain(*args)
+    torch.cuda.synchronize()
+    err = compare("segment_scan", got, ref, dtype_name)
+    ms = cuda_ms(lambda: segment_scan_kernel(*args), 5)
+    plain_ms = cuda_ms(lambda: segment_scan_plain(*args), 2)
+    return err, ms, plain_ms
+
+
 def phase_kernels(device, tmp):
     import numpy as np
-    fw, statics = real_meta(tmp)
+    arrays, statics = real_locus(tmp)
+    P_real, L = arrays[0].codes.shape
+    H, R = arrays[2].row_char.shape
+    O = arrays[2].rep_len.shape[0]
     results = {}
-    for label, shape in (("main", MAIN), ("deep", DEEP)):
+    for label, shape, P in (("main", MAIN, P_real),
+                            ("deep", DEEP, SCAN_DEEP_P)):
         for dtype_name in ("float32", "float64"):
             rng = np.random.default_rng(7)
             e_err, e_ms, e_plain = check_emission(shape, dtype_name, device,
                                                   rng)
-            s_err, s_ms, s_plain, R = check_segment(shape, dtype_name, device,
-                                                    rng, fw, statics)
+            s_err, s_ms, s_plain, R2 = check_segment(
+                shape, dtype_name, device, rng, arrays[2], statics)
+            f = check_flank_scan(P, dtype_name, device, rng, arrays, statics)
+            k3 = check_segment_scan(P, dtype_name, device, rng, arrays,
+                                    statics)
             results[(label, dtype_name)] = dict(
-                emission=(e_err, e_ms, e_plain), segment=(s_err, s_ms, s_plain))
+                emission=(e_err, e_ms, e_plain), segment=(s_err, s_ms, s_plain),
+                flank_scan=f, segment_scan=k3)
             log(f"{label} {dtype_name} G={shape['G']} O={shape['O']} "
                 f"P={shape['P']} L={shape['L']} Bmax={shape['Bmax']} "
-                f"H={shape['H']} R={R}: "
+                f"H={shape['H']} R={R2}: "
                 f"emission err {e_err:.3e} kernel {e_ms:.3f} ms plain "
                 f"{e_plain:.3f} ms | segment err {s_err:.3e} kernel "
                 f"{s_ms:.3f} ms plain {s_plain:.3f} ms")
+            log(f"{label} {dtype_name} one locus P={P} H={H} L={L} O={O} "
+                f"R={R} sr={statics[2]} period={statics[4]}: "
+                f"flank_scan err {f[0]:.3e} kernel {f[1]:.3f} ms plain "
+                f"{f[2]:.3f} ms | segment_scan err {k3[0]:.3e} kernel "
+                f"{k3[1]:.3f} ms plain {k3[2]:.3f} ms")
     return results
 
 
@@ -302,10 +408,14 @@ def phase_slice(tmp, device_name="cuda"):
     log(pipeline.timer.summary())
     if counters.genotype_success != SLICE_LOCI or counters.genotype_fail:
         raise AssertionError("slice did not genotype every locus")
-    for name, n in launches.items():
-        if n < 2 * dispatches:
-            raise AssertionError(f"kernel {name}: {n} launches for "
-                                 f"{dispatches} dispatches")
+    for name in ("emission", "segment"):
+        if launches[name] < 2 * dispatches:
+            raise AssertionError(f"kernel {name}: {launches[name]} launches "
+                                 f"for {dispatches} dispatches")
+    for name in ("flank_scan", "segment_scan"):   # per-locus kernels only
+        if launches[name]:
+            raise AssertionError(f"kernel {name} launched on the batched "
+                                 "path")
     check_no_jax()
     recs = vcf_body(f"{tmp}/slice.vcf")
     if len(recs) != SLICE_LOCI:
@@ -316,6 +426,126 @@ def phase_slice(tmp, device_name="cuda"):
 
 
 # ---------------------------------------------------------------- phase 5
+def phase_sequential(tmp, device_name="cuda"):
+    """The sequential run (--batch-loci 0) on the slice's loci."""
+    import torch
+    from hipstr_tpu_torch import cli, kernels
+    from hipstr_tpu_torch.pipeline import hap_aligner
+    args = ["--bams", f"{tmp}/sim.bam", "--fasta", f"{tmp}/sim.fa",
+            "--regions", f"{tmp}/regions.bed", "--min-reads", "15",
+            "--use-unpaired", "--def-stutter-model", "--batch-loci", "0",
+            "--dtype", "float32", "--device", device_name, "--silent"]
+    cli.run(args + ["--str-vcf", f"{tmp}/seq_warm.vcf", "--max-regions",
+                    "4"])
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    calls0 = hap_aligner.CALLS
+    t0 = time.perf_counter()
+    pipeline, counters = cli.run(args + ["--str-vcf", f"{tmp}/seq.vcf"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    n = hap_aligner.CALLS - calls0
+    log(f"sequential: success={counters.genotype_success} "
+        f"fail={counters.genotype_fail} aligner calls={n} "
+        f"launches={launches}")
+    log(f"sequential: {SLICE_LOCI / wall:.3f} loci/s, wall {wall:.3f} s")
+    log(pipeline.timer.summary())
+    if counters.genotype_success != SLICE_LOCI or counters.genotype_fail:
+        raise AssertionError("sequential run did not genotype every locus")
+    want = dict(emission=2 * n, flank_scan=4 * n, segment=0, segment_scan=0)
+    if n < SLICE_LOCI or launches != want:
+        raise AssertionError(f"sequential: {n} aligner calls, launches "
+                             f"{launches}, expected {want}")
+    check_no_jax()
+    recs = vcf_body(f"{tmp}/seq.vcf")
+    if len(recs) != SLICE_LOCI:
+        raise AssertionError(f"sequential VCF has {len(recs)} records")
+    return launches, dict(loci_per_s=SLICE_LOCI / wall, wall_s=wall,
+                          aligner_calls=n)
+
+
+# ---------------------------------------------------------------- phase 6
+def phase_modes(tmp, device):
+    """Flank mode (K4) against fused mode (K3) on the first-round
+    alignment of every locus of the slice, float64."""
+    import numpy as np
+    import torch
+    from hipstr_tpu_torch import kernels
+    from hipstr_tpu_torch.host import (GenotyperPipeline, Logger,
+                                       PipelineOptions, StutterModel,
+                                       read_regions)
+    from hipstr_tpu_torch.pipeline.hap_aligner import \
+        compute_hap_log_likelihoods
+    opts = PipelineOptions(
+        min_reads=15, use_unpaired=True, dtype="float64",
+        def_stutter_model=StutterModel(0.95, 0.05, 0.05, 0.95, 0.01, 0.01, 2))
+    p = GenotyperPipeline([f"{tmp}/sim.bam"], f"{tmp}/sim.fa", opts,
+                          Logger(quiet=True))
+    loci = []
+    for region in read_regions(f"{tmp}/regions.bed", SLICE_LOCI):
+        g = p.prepare_locus_genotyper(region,
+                                      p.fasta.get_sequence(region.chrom))
+        if g is None:
+            raise AssertionError(f"modes: no genotyper for {region}")
+        loci.append((region, (g.align_haplotype(), *g.pool_inputs())))
+    modes = ("flank", "fused")
+    for mode in modes:      # warm-up, not counted
+        compute_hap_log_likelihoods(*loci[0][1], dtype="float64",
+                                    device=device, mode=mode)
+    kernels.reset_launches()
+    seconds = dict.fromkeys(modes, 0.0)
+    worst = 0.0
+    for region, locus in loci:
+        ll = {}
+        for mode in modes:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            # ends in a copy to the host, which waits for the device
+            ll[mode] = compute_hap_log_likelihoods(
+                *locus, dtype="float64", device=device, mode=mode)
+            seconds[mode] += time.perf_counter() - t0
+        diff = np.abs(ll["flank"] - ll["fused"])
+        if not np.all(diff <= MODES_TOL + MODES_TOL * np.abs(ll["flank"])):
+            raise AssertionError(f"modes differ by {diff.max()} at "
+                                 f"{region}")
+        worst = max(worst, float(diff.max()))
+    launches = dict(kernels.LAUNCHES)
+    n = len(loci)
+    want = dict(emission=4 * n, flank_scan=4 * n, segment=0,
+                segment_scan=2 * n)
+    if launches != want:
+        raise AssertionError(f"modes: launches {launches}, expected {want}")
+    check_no_jax()
+    ms = {m: 1e3 * seconds[m] / n for m in modes}
+    log(f"modes: {n} loci, max |LL flank - LL fused| {worst:.3e}; "
+        f"ms per call flank {ms['flank']:.3f} fused {ms['fused']:.3f}; "
+        f"launches={launches}")
+    return launches, dict(loci=n, max_abs_diff=worst, flank_ms=ms["flank"],
+                          fused_ms=ms["fused"])
+
+
+# ---------------------------------------------------------------- phase 7
+def phase_em(tmp, device_name="cuda"):
+    """The sequential run without a stutter model: the host EM."""
+    from hipstr_tpu_torch import cli
+    pipeline, counters = cli.run(
+        ["--bams", f"{tmp}/sim.bam", "--fasta", f"{tmp}/sim.fa",
+         "--regions", f"{tmp}/regions.bed", "--min-reads", "15",
+         "--use-unpaired", "--batch-loci", "0", "--max-regions",
+         str(EM_LOCI), "--dtype", "float32", "--device", device_name,
+         "--silent", "--str-vcf", f"{tmp}/em.vcf"])
+    recs = vcf_body(f"{tmp}/em.vcf")
+    log(f"sequential EM: success={counters.genotype_success} "
+        f"fail={counters.genotype_fail} em_fail={counters.em_fail} "
+        f"records={len(recs)}")
+    if counters.genotype_fail or len(recs) != counters.genotype_success \
+            or not recs:
+        raise AssertionError("sequential EM run failed")
+    check_no_jax()
+
+
+# ---------------------------------------------------------------- phase 8
 def vcf_body(path):
     return [l for l in open(path) if not l.startswith("#")]
 
@@ -349,26 +579,33 @@ def within_drift_bands(a: str, b: str) -> bool:
 
 
 def phase_reference(tmp, device_name="cuda"):
+    """The float64 VCF of the reference dataset, batched and sequential,
+    against tests/data/torch_port_ref_f64.vcf."""
     from hipstr_tpu_torch import cli
     from hipstr_tpu_torch.utils.simdata import (REFERENCE_ARGS,
                                                 reference_loci, write_sim)
     write_sim(tmp, reference_loci())
-    cli.run(["--bams", f"{tmp}/sim.bam", "--fasta", f"{tmp}/sim.fa",
-             "--regions", f"{tmp}/regions.bed", "--str-vcf",
-             f"{tmp}/ref64.vcf", "--dtype", "float64", "--device", device_name,
-             "--silent"] + REFERENCE_ARGS)
-    got, want = vcf_body(f"{tmp}/ref64.vcf"), vcf_body(REF_VCF)
-    if len(got) != len(want):
-        raise AssertionError(f"f64 VCF: {len(got)} records, reference "
-                             f"{len(want)}")
-    diffs = [(a, b) for a, b in zip(got, want) if a != b]
-    for a, b in diffs:
-        log(f"f64 differs from the reference:\n  port {a.strip()}\n"
-            f"  ref  {b.strip()}")
-        if not within_drift_bands(a, b):
-            raise AssertionError("f64 VCF outside the golden drift bands")
-    log(f"f64 cross-check: {len(got)} records, "
-        f"{len(got) - len(diffs)} byte-identical to the reference")
+    want = vcf_body(REF_VCF)
+    for label, extra in (("batched", []), ("sequential", ["--batch-loci",
+                                                          "0"])):
+        out = f"{tmp}/ref64_{label}.vcf"
+        cli.run(["--bams", f"{tmp}/sim.bam", "--fasta", f"{tmp}/sim.fa",
+                 "--regions", f"{tmp}/regions.bed", "--str-vcf", out,
+                 "--dtype", "float64", "--device", device_name, "--silent"]
+                + REFERENCE_ARGS + extra)
+        got = vcf_body(out)
+        if len(got) != len(want):
+            raise AssertionError(f"f64 {label} VCF: {len(got)} records, "
+                                 f"reference {len(want)}")
+        diffs = [(a, b) for a, b in zip(got, want) if a != b]
+        for a, b in diffs:
+            log(f"f64 {label} differs from the reference:\n  port "
+                f"{a.strip()}\n  ref  {b.strip()}")
+            if not within_drift_bands(a, b):
+                raise AssertionError(f"f64 {label} VCF outside the golden "
+                                     "drift bands")
+        log(f"f64 cross-check ({label}): {len(got)} records, "
+            f"{len(got) - len(diffs)} byte-identical to the reference")
 
 
 def main() -> int:
@@ -391,20 +628,25 @@ def main() -> int:
         log(f"dataset: {SLICE_LOCI} loci x 3 samples x {SLICE_READS} reads "
             f"in {time.perf_counter() - t0:.2f} s")
         kres = phase_kernels(device, f"{tmp}/slice")
+        # each path's launches, counted from 0 over that path's run
         launches, slice_stats = phase_slice(f"{tmp}/slice")
+        seq_launches, seq_stats = phase_sequential(f"{tmp}/slice")
+        mode_launches, mode_stats = phase_modes(f"{tmp}/slice", device)
+        phase_em(f"{tmp}/slice")
         phase_reference(f"{tmp}/ref")
     check_no_jax()
-    log(json.dumps({"slice": slice_stats, "card": card}))
+    log(json.dumps({"slice": slice_stats, "sequential": seq_stats,
+                    "modes": mode_stats, "card": card}))
+    launches.update(flank_scan=seq_launches["flank_scan"],
+                    segment_scan=mode_launches["segment_scan"])
     main32 = kres[("main", "float32")]
-    sources = {"emission": ("hipstr_tpu_torch/csrc/emission.cu",
-                            "hipstr_tpu/ops/pallas_emission.py:62"),
-               "segment": ("hipstr_tpu_torch/csrc/segment.cu",
-                           "hipstr_tpu/ops/pallas_hmm2.py:69")}
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": main32[name][0],
          "ms": main32[name][1], "plain_ms": main32[name][2]}
-        for name, (src, rep) in sources.items()]}
+        for name, (src, rep) in SOURCES.items()]}
+    if not all(k["launches"] > 0 for k in summary["kernels"]):
+        raise AssertionError(f"a kernel was never launched: {summary}")
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

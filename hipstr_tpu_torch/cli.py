@@ -2,9 +2,11 @@
 
 The JAX package's flag table (hipstr_tpu.cli.build_parser) plus
 `--device cuda|cpu` (default cuda; `cuda` without a visible card is an
-error).  The batched in-process run is ported; the options whose paths are
-not ported yet stop with a "not yet ported" error and a non-zero exit
-rather than fall back.
+error).  The batched in-process run (`--batch-loci N`, N > 0, with a
+stutter model) and the sequential run (`--batch-loci 0`, with a model or
+the host stutter EM) are ported; the options whose paths are not ported
+yet stop with a "not yet ported" error and a non-zero exit rather than
+fall back.
 """
 
 from __future__ import annotations
@@ -28,9 +30,11 @@ def _parser():
 
 def not_ported(args) -> str:
     """The first requested option whose path is not ported, or ''."""
+    batched = args.batch_loci > 0
     if args.workers > 1:
         return "--workers"
-    if args.host_workers > 1:
+    if args.host_workers > 1 and batched:
+        # the JAX CLI pools host workers only for batched runs
         return "--host-workers > 1"
     if args.distributed:
         return "--distributed"
@@ -38,10 +42,9 @@ def not_ported(args) -> str:
         return "--profile"
     if args.platform:
         return "--platform (use --device)"
-    if args.batch_loci <= 0:
-        return "--batch-loci 0 (the sequential path)"
-    if not args.def_stutter_model and not args.stutter_in:
-        return ("stutter EM (pass --def-stutter-model or --stutter-in)")
+    if batched and not args.def_stutter_model and not args.stutter_in:
+        return ("the batched stutter EM (pass --def-stutter-model or "
+                "--stutter-in, or run sequentially with --batch-loci 0)")
     return ""
 
 
@@ -50,8 +53,8 @@ class UsageError(Exception):
 
 
 def run(argv=None):
-    """Parse `argv` and run the batched pipeline; returns (pipeline,
-    counters).  Raises UsageError for a refused command line; device and
+    """Parse `argv` and run the batched or (`--batch-loci 0`) sequential
+    pipeline; returns (pipeline, counters).  Raises UsageError for a refused command line; device and
     kernel errors propagate."""
     args = _parser().parse_args(argv)
     missing = not_ported(args)
@@ -118,10 +121,15 @@ def run(argv=None):
     pipeline = GenotyperPipeline(bam_paths, args.fasta, opts, logger,
                                  bam_samps, bam_libs,
                                  lib_field=args.lib_field)
-    from .parallel.executor import run_batched
-    counters = run_batched(pipeline, args.regions, args.str_vcf, device,
-                           batch_size=args.batch_loci,
-                           full_command=" ".join(sys.argv))
+    if args.batch_loci > 0:
+        from .parallel.executor import run_batched
+        counters = run_batched(pipeline, args.regions, args.str_vcf, device,
+                               batch_size=args.batch_loci,
+                               full_command=" ".join(sys.argv))
+    else:
+        from .pipeline.sequential import run_sequential
+        counters = run_sequential(pipeline, args.regions, args.str_vcf,
+                                  device, full_command=" ".join(sys.argv))
     logger.quiet = args.silent
     logger.log(pipeline.timer.summary())
     logger.log(

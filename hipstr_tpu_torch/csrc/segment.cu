@@ -18,55 +18,22 @@
 //
 // Design: one block per (g, h, p) with one thread per read lane
 // (blockDim = L <= 512).  M and D of the current row live in registers
-// (I feeds no later row); the previous row's M and D and the new I go
-// through shared memory for the one-lane shifts, behind __syncthreads().
-// The in-row insert recurrence is a block-wide inclusive max-scan (warp
-// shuffles, then a prefix over the warp totals; max is exact, so the scan
-// order cannot change a bit).  Row metadata (char, m2m/m2i/m2d) is read
-// straight from HapMeta; the TPU kernel's packed int32 stream and LUT
-// argmin existed for its scalar memory.  The stutter row reads M_prev[(j - s_d) mod L] with
+// (I feeds no later row); the row recurrences are the shared helpers of
+// dp_rows.cuh: the one-lane shifts go through shared memory, the in-row
+// insert recurrence is a block-wide inclusive max-scan.  Row metadata
+// (char, m2m/m2i/m2d) is read straight from HapMeta; the TPU kernel's
+// packed int32 stream and LUT argmin existed for its scalar memory.  The
+// stutter row reads M_prev[(j - s_d) mod L] with
 // s_d = rep_len + D_min + d * period (may be negative), and 0.0 (not NEG)
 // where j < s_d; every term is clamped at IMPOSSIBLE.  It fills all L
 // lanes, past the pool's last column too.  Rows outside [start1, end3) and
 // haplotypes h >= h_real hold NEG.  IEEE exp/log: no fast math.
 
-#include <cuda_runtime.h>
-#include <stddef.h>
+#include "dp_rows.cuh"
 
 namespace {
 
-// one thread per read lane; the largest L bucket of prepare_locus
-constexpr int kMaxLanes = 512;
-
-__device__ __forceinline__ float xexp(float x) { return expf(x); }
-__device__ __forceinline__ double xexp(double x) { return exp(x); }
-__device__ __forceinline__ float xlog(float x) { return logf(x); }
-__device__ __forceinline__ double xlog(double x) { return log(x); }
-template <typename T>
-__device__ __forceinline__ T xmax(T a, T b) { return a > b ? a : b; }
-
-// transition constants of ops/hmm.py (log(e^-1), log1p(-e^-1))
-constexpr double kInsToIns = -1.0;
-constexpr double kInsToMatch = -0.45867514538708193;
-constexpr double kDelToDel = -1.0;
-constexpr double kDelToMatch = -0.45867514538708193;
-
-// Inclusive max-scan over the block's lanes.  Every thread of the block
-// must call it; it contains one __syncthreads().
-template <typename T>
-__device__ __forceinline__ T block_max_scan(T v, T* wtot, T neg) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    T t = __shfl_up_sync(0xffffffffu, v, off);
-    if (lane >= off) v = xmax(v, t);
-  }
-  if (lane == 31) wtot[warp] = v;
-  __syncthreads();
-  T pre = neg;
-  for (int w = 0; w < warp; ++w) pre = xmax(pre, wtot[w]);
-  return warp > 0 ? xmax(v, pre) : v;
-}
+using dp::kMaxLanes;
 
 template <typename T>
 __global__ void __launch_bounds__(kMaxLanes) segment_kernel(
@@ -79,16 +46,12 @@ __global__ void __launch_bounds__(kMaxLanes) segment_kernel(
     const int* __restrict__ shift, const T* __restrict__ lpmf_h,
     const int* __restrict__ bounds, T* __restrict__ Mcol,
     int H, int P, int L, int R, int O, int nD, int sr) {
-  const T NEG = T(-1.0e30);
-  const T IMPOSSIBLE = T(-1.0e9);
+  const T NEG = T(dp::kNeg);
   const int p = blockIdx.x, h = blockIdx.y, g = blockIdx.z;
   const int j = threadIdx.x;
 
   extern __shared__ unsigned char smem_raw[];
-  T* sM = reinterpret_cast<T*>(smem_raw);
-  T* sD = sM + L;
-  T* sI = sD + L;
-  T* wtot = sI + L;  // 32 warp totals
+  const dp::RowScratch<T> s(reinterpret_cast<T*>(smem_raw), L);
 
   const int start1 = bounds[g * 4 + 0];
   const int end3 = bounds[g * 4 + 1];
@@ -115,74 +78,36 @@ __global__ void __launch_bounds__(kMaxLanes) segment_kernel(
   const T* m2m = row_m2m + gh * R;
   const T* m2i = row_m2i + gh * R;
   const T* m2d = row_m2d + gh * R;
-  const T jj = T(j);
 
   // row 0: leftmost hap char; earlier read bases soft-clip at blc
   // (I of a row feeds no later row: the insert state is rebuilt from M by
   // the max-scan, so only M and D are carried)
   T m = (code == chars[0] ? c : w) + Cshj;
-  T d = IMPOSSIBLE;
+  T d = T(dp::kImpossible);
   if (j == lc) out[0] = m;
 
   auto flank_row = [&](int r) {
-    sM[j] = m;
-    sD[j] = d;
-    __syncthreads();
-    const T mprev = j ? sM[j - 1] : NEG;
-    const T dprev = j ? sD[j - 1] : NEG;
-    const T a = j ? mprev + T(kInsToMatch) : T(0);
-    const T f = a - Cshj - jj * T(kInsToIns);
-    const T cm = block_max_scan(f, wtot, NEG);
-    const T i_new = Cj + jj * T(kInsToIns) + cm;
-    sI[j] = i_new;
-    __syncthreads();
-    const T iprev = j ? sI[j - 1] : NEG;
-    const T t = j ? xmax(iprev + m2i[r], xmax(mprev + m2m[r], dprev + m2d[r]))
-                  : T(0);
-    const T d_new = xmax(m + T(kDelToMatch), d + T(kDelToDel));
-    m = (code == chars[r] ? c : w) + t;
-    d = d_new;
+    dp::flank_row(m, d, (code == chars[r] ? c : w), Cj, Cshj, m2m[r],
+                  m2i[r], m2d[r], s);
     if (j == lc) out[static_cast<size_t>(r) * P] = m;
   };
 
   // phase 1: flank rows start1 .. sr-1 (1 .. start1-1 are bucket padding)
   for (int r = start1; r < sr; ++r) flank_row(r);
 
-  // phase 2: the stutter row, an online log-sum-exp over artifact sizes
-  sM[j] = m;
-  __syncthreads();
-  {
-    const int opt = hap_opt[gh];
-    const int sh = shift[gh];  // rep_len[opt] + D_min, may be negative
-    const T* lp = lpmf_h + gh * nD;
-    const size_t plane = static_cast<size_t>(P) * L;
-    const T* Eh = E + (static_cast<size_t>(g) * O + opt) * nD * plane
-                  + static_cast<size_t>(p) * L + j;
-    T mx = NEG, sm = T(0);
-    for (int dd = 0; dd < nD; ++dd) {
-      const int s_d = sh + dd * period;
-      int src = (j - s_d) % L;
-      if (src < 0) src += L;
-      const T ent = j >= s_d ? sM[src] : T(0);
-      const T val = xmax(lp[dd] + Eh[dd * plane] + ent, IMPOSSIBLE);
-      const T nm = xmax(mx, val);
-      sm = sm * xexp(mx - nm) + xexp(val - nm);
-      mx = nm;
-    }
-    m = mx + xlog(sm);
-    d = IMPOSSIBLE;
-    if (j == lc) out[static_cast<size_t>(sr) * P] = m;
-  }
-  __syncthreads();
+  // phase 2: the stutter row; shift = rep_len[opt] + D_min, may be negative
+  const size_t plane = static_cast<size_t>(P) * L;
+  const T* Eh = E + (static_cast<size_t>(g) * O + hap_opt[gh]) * nD * plane
+                + static_cast<size_t>(p) * L + j;
+  dp::stutter_row(m, Eh, plane, lpmf_h + gh * nD, shift[gh], period, nD, L,
+                  s);
+  d = T(dp::kImpossible);
+  if (j == lc) out[static_cast<size_t>(sr) * P] = m;
 
   // forced-match row: the repeat block is left through a match
   if (sr + 1 < R) {
-    sM[j] = m;
-    __syncthreads();
-    const T t = j ? sM[j - 1] : T(0);
-    m = (code == chars[sr + 1] ? c : w) + t;
+    dp::forced_match_row(m, (code == chars[sr + 1] ? c : w), s);
     if (j == lc) out[static_cast<size_t>(sr + 1) * P] = m;
-    __syncthreads();
   }
 
   // phase 3: remaining flank rows (tail bucket padding skipped)
@@ -194,8 +119,8 @@ int launch(const void* const* a, void* Mcol, int G, int H, int P, int L,
            int R, int O, int nD, int sr, void* stream) {
   if (G == 0 || H == 0 || P == 0) return 0;
   dim3 grid(P, H, G);
-  const size_t smem = (3 * L + 32) * sizeof(T);
-  segment_kernel<T><<<grid, L, smem, static_cast<cudaStream_t>(stream)>>>(
+  segment_kernel<T><<<grid, L, dp::RowScratch<T>::bytes(L),
+                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(a[0]), static_cast<const T*>(a[1]),
       static_cast<const T*>(a[2]), static_cast<const T*>(a[3]),
       static_cast<const T*>(a[4]), static_cast<const int*>(a[5]),

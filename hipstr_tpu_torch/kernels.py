@@ -2,13 +2,16 @@
 
 Each `csrc/<name>.cu` compiles with nvcc into its own shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds), loaded
-with ctypes.  The library name carries a hash of the source and the flags,
-so a stale build is never loaded.  Builds happen at first use, into
+with ctypes.  The library name carries a hash of the source, of every
+shared header `csrc/*.cuh` and of the flags, so a stale build is never
+loaded.  Builds happen at first use, into
 `build/hipstr_tpu_torch/` at the repository root (listed in .gitignore).
 A missing nvcc or a failed build raises; nothing falls back.
 
 `LAUNCHES` counts kernel launches by name.  Only the wrappers that launch
-a kernel add to it, right after the launch.
+a kernel add to it, right after the launch.  `DeviceError` marks a failure
+of device work (a build, a launch, a transfer) that must end a run rather
+than fail one locus.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict
 
@@ -33,7 +37,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # one thread per read lane: kMaxLanes, the __launch_bounds__ of csrc/*.cu
 MAX_LANES = 512
 
-LAUNCHES: Dict[str, int] = {"emission": 0, "segment": 0}
+LAUNCHES: Dict[str, int] = {"emission": 0, "segment": 0, "flank_scan": 0,
+                            "segment_scan": 0}
 # name -> {"seconds": build time, "ptxas": compiler resource report}
 BUILD_INFO: Dict[str, dict] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -44,7 +49,15 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "emission": [_P] * 7 + [_I] * 5 + [_P],
     "segment": [_P] * 16 + [_I] * 8 + [_P],
+    "flank_scan": [_P] * 18 + [_I] * 4 + [_P],
+    "segment_scan": [_P] * 16 + [_I] * 7 + [_P],
 }
+
+
+class DeviceError(RuntimeError):
+    """Device work failed: a kernel build or launch, a transfer, or the
+    device computation of one locus.  Runs end on it; it is never counted
+    as a failed locus."""
 
 
 def reset_launches() -> None:
@@ -66,15 +79,23 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def library_path(name: str) -> Path:
+    """Where library `name` is built: keyed by its source, every shared
+    header and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.name.encode() + hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded kernel library `name`, building it on first use."""
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
     src = CSRC / f"{name}.cu"
-    text = src.read_bytes()
-    key = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"lib{name}-{key}.so"
+    so = library_path(name)
     if not so.exists():
         nvcc = find_nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -99,6 +120,12 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
+def build_all() -> None:
+    """Build every kernel library at once, one nvcc process per source."""
+    with ThreadPoolExecutor(max_workers=len(LAUNCHES)) as pool:
+        list(pool.map(library, LAUNCHES))
+
+
 def launcher(name: str, dtype: torch.dtype):
     return getattr(library(name),
                    f"{name}_{'f64' if dtype == torch.float64 else 'f32'}")
@@ -118,6 +145,16 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 def stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def check_lanes(name: str, dtype: torch.dtype, L: int) -> None:
+    """Raise unless the kernels take `dtype` and L lanes (one thread each,
+    whole warps)."""
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"{name}: dtype {dtype}")
+    if L % 32 or L > MAX_LANES:
+        raise ValueError(f"{name}: L={L} must be a multiple of 32 and at "
+                         f"most {MAX_LANES}")
 
 
 def check_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,

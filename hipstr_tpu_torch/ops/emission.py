@@ -35,11 +35,7 @@ def stutter_emissions(codes, blw, blc, brev, blen, periods):
     G, P, L = codes.shape
     O, Bmax = brev.shape[1], brev.shape[2]
     dev, dtype = codes.device, blc.dtype
-    if dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"stutter_emissions: dtype {dtype}")
-    if L % 32 or L > kernels.MAX_LANES:
-        raise ValueError(f"stutter_emissions: L={L} must be a multiple of "
-                         f"32 and at most {kernels.MAX_LANES}")
+    kernels.check_lanes("stutter_emissions", dtype, L)
     for name, t, dt, shape in (
             ("codes", codes, torch.int32, (G, P, L)),
             ("blw", blw, dtype, (G, P, L)), ("blc", blc, dtype, (G, P, L)),

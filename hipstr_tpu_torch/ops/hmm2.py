@@ -67,8 +67,8 @@ def segment_forward_plain(codes, blw, blc, C, Csh, last_col, row_char,
             if not bool(on.any()):
                 continue
             em = emit(codes, row_char[:, :, r], blc, blw)
-            Mn, Dn = flank_row(M, D, em, C4, Csh4, jj, rc(m2m, r),
-                               rc(m2i, r), rc(m2d, r))
+            Mn, _, Dn = flank_row(M, D, em, C4, Csh4, jj, rc(m2m, r),
+                                  rc(m2i, r), rc(m2d, r))
             sel = on[:, None, None, None]
             M = torch.where(sel, Mn, M)
             D = torch.where(sel, Dn, D)
@@ -146,11 +146,7 @@ def segment_kernel(codes, blw, blc, C, Csh, last_col, row_char, m2m, m2i,
     H = row_char.shape[1]
     O, nD = E.shape[1], E.shape[2]
     dtype, dev = blc.dtype, codes.device
-    if dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"segment_forward: dtype {dtype}")
-    if L % 32 or L > kernels.MAX_LANES:
-        raise ValueError(f"segment_forward: L={L} must be a multiple of 32 "
-                         f"and at most {kernels.MAX_LANES}")
+    kernels.check_lanes("segment_forward", dtype, L)
     if not 0 < sr < R:
         raise ValueError(f"segment_forward: stutter row {sr} outside [1, {R})")
     i32 = torch.int32

@@ -149,6 +149,28 @@ def device_post_enabled(device: torch.device) -> bool:
 FAILED = object()
 
 
+def open_vcf(pipeline, out_vcf: Optional[str], full_command: str):
+    """The run's VCF writer, or None without an output path."""
+    if not out_vcf:
+        return None
+    header = build_vcf_header(pipeline.fasta_path, full_command,
+                              pipeline.fasta.contig_header_lines(),
+                              pipeline.samples, pipeline.opts.output)
+    return VCFWriter(out_vcf, header)
+
+
+def close_outputs(pipeline, writer) -> None:
+    """Close the run's VCF, viz and pass/filt BAM writers and write
+    --stutter-out (the tail of the JAX package's run)."""
+    for w in (writer, pipeline.viz_writer, pipeline.pass_writer,
+              pipeline.filt_writer):
+        if w is not None:
+            w.close()
+    if pipeline.opts.stutter_out:
+        with open(pipeline.opts.stutter_out, "w") as fh:
+            write_stutter_models(pipeline._stutter_out, fh)
+
+
 def _fetch(res):
     if isinstance(res, tuple):
         return tuple(r.cpu().numpy() for r in res)
@@ -169,12 +191,7 @@ def run_batched(pipeline, regions_bed: str, out_vcf: Optional[str],
             "stutter model (--def-stutter-model or --stutter-in)")
     regions = read_regions(regions_bed, opts.max_regions, opts.chrom,
                            opts.locus_shard)
-    writer = None
-    if out_vcf:
-        header = build_vcf_header(pipeline.fasta_path, full_command,
-                                  pipeline.fasta.contig_header_lines(),
-                                  pipeline.samples, opts.output)
-        writer = VCFWriter(out_vcf, header)
+    writer = open_vcf(pipeline, out_vcf, full_command)
 
     aligner = BatchedAligner(device, opts.dtype, batch_size, pipeline.logger)
     # records enter the writer in BED order; loci settle out of order
@@ -390,15 +407,5 @@ def run_batched(pipeline, regions_bed: str, out_vcf: Optional[str],
         spec_misses=int(aligner.spec_misses),
         dispatches=int(aligner.dispatches))
 
-    if writer is not None:
-        writer.close()
-    if pipeline.viz_writer is not None:
-        pipeline.viz_writer.close()
-    if pipeline.pass_writer is not None:
-        pipeline.pass_writer.close()
-    if pipeline.filt_writer is not None:
-        pipeline.filt_writer.close()
-    if opts.stutter_out:
-        with open(opts.stutter_out, "w") as fh:
-            write_stutter_models(pipeline._stutter_out, fh)
+    close_outputs(pipeline, writer)
     return pipeline.counters

@@ -9,9 +9,11 @@ extents, so there is no compile count to save with coarser buckets).
 `locus_to_torch` turns such a pytree (the port's or the JAX package's,
 read by field name) into the port's containers of tensors.
 
-`compute_hap_log_likelihoods` has the JAX module's signature, so
+`compute_hap_log_likelihoods` takes the JAX module's arguments, so
 `host.py` can register this module under the JAX module's name where JAX
-is absent; the batched executor never calls it.
+is not loaded and the genotyper's sequential rounds call it; the batched
+executor never calls it.  It runs on the device that `use_device`
+installed (the sequential runner installs it) and never picks one itself.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ from hipstr_tpu.align.haplotype import Haplotype
 from hipstr_tpu.align.packing import pack_haplotypes, pack_reads
 
 from ..device import resolve_dtype
-from ..ops.hmm import HapMeta, SeedMeta, SegmentInputs
+from ..kernels import DeviceError
+from ..ops.hmm import HapMeta, SeedMeta, SegmentInputs, hmm_forward
 
 _CPU_BUCKETS = dict(
     L=[64, 128, 192, 256, 384, 512],
@@ -265,8 +268,9 @@ def stack_arrays(items):
 
 
 def _tensor(x, device, dtype):
-    a = np.ascontiguousarray(x)
-    t = torch.from_numpy(a)
+    a = np.asarray(x)
+    # ascontiguousarray would make a 0-d array (a per-locus scalar) 1-d
+    t = torch.from_numpy(np.ascontiguousarray(a) if a.ndim else a)
     if a.dtype.kind == "f":
         return t.to(device=device, dtype=dtype)
     return t.to(device=device)
@@ -294,21 +298,43 @@ def locus_to_torch(arrays, device, dtype):
     return tuple(out)
 
 
-def compute_hap_log_likelihoods(haplotype: Haplotype, seqs, quals, seeds,
-                                dtype: str = "float32",
-                                device: str = "cpu") -> np.ndarray:
-    """LL[pool, hap] for every read pool against every haplotype
-    combination (one locus, one dispatch on `device`)."""
-    from ..ops.hmm2 import batched_forward
+# the device compute_hap_log_likelihoods runs on when it is given none
+_DEVICE = None
+# compute_hap_log_likelihoods calls that reached the device, this process
+CALLS = 0
 
+
+def use_device(device):
+    """Install the torch device of `compute_hap_log_likelihoods` (None
+    uninstalls); returns the one installed before."""
+    global _DEVICE
+    prev = _DEVICE
+    _DEVICE = None if device is None else torch.device(device)
+    return prev
+
+
+def compute_hap_log_likelihoods(haplotype: Haplotype, seqs, quals, seeds,
+                                dtype: str = "float32", device=None,
+                                mode: str = "flank") -> np.ndarray:
+    """LL[pool, hap] for every read pool against every haplotype
+    combination of one locus, on `device` or else the installed one
+    (`use_device`); raises when there is neither.  `mode` picks the
+    per-locus forward (ops/hmm.segment_forward).  Packing is host work;
+    any failure from the move to the device through the fetch of LL is
+    raised as DeviceError."""
+    global CALLS
+    dev = torch.device(device) if device is not None else _DEVICE
+    if dev is None:
+        raise RuntimeError("compute_hap_log_likelihoods: no device given and "
+                           "none installed (pipeline.hap_aligner.use_device)")
     arrays, statics = prepare_locus(haplotype, seqs, quals, seeds, dtype)
     R_f, R_r, sr_f, sr_r, period, P_real, H_real = statics[:7]
-    dev = torch.device(device)
     tdtype = resolve_dtype(dtype)
-    l_seg, r_seg, fw, rev, seed, sc, sq = locus_to_torch(
-        stack_arrays([arrays]), dev, tdtype)
-    h_real = torch.tensor([H_real], dtype=torch.int32, device=dev)
-    periods = torch.tensor([period], dtype=torch.int32, device=dev)
-    LL = batched_forward(l_seg, r_seg, fw, rev, seed, sc, sq, R_f, R_r,
-                         sr_f, sr_r, h_real, periods, tdtype)
-    return LL[0, :P_real, :H_real].cpu().numpy()
+    CALLS += 1
+    try:
+        LL = hmm_forward(*locus_to_torch(arrays, dev, tdtype), R_f, R_r,
+                         period, sr_f, sr_r, tdtype, mode=mode)
+        return LL[:P_real, :H_real].cpu().numpy()
+    except Exception as exc:
+        raise DeviceError(f"per-locus alignment on {dev} failed: "
+                          f"{exc!r}") from exc

@@ -11,6 +11,7 @@ from hipstr_tpu.ops.stutter_emission import stutter_emissions_tpu
 from hipstr_tpu_torch import kernels
 from hipstr_tpu_torch.ops.emission import stutter_emissions
 from hipstr_tpu_torch.ops.stutter_emission import stutter_emissions_plain
+from test_torch_slice import one_torch_thread  # noqa: F401
 
 
 def _inputs(seed, G, O, P, L, Bmax, periods):

@@ -13,6 +13,7 @@ from hipstr_tpu.pipeline import hap_aligner as jax_aligner
 from hipstr_tpu.pipeline.genotyper import calc_seed_base
 from hipstr_tpu.utils.simulate import simulate_locus
 from hipstr_tpu_torch.pipeline import hap_aligner as port_aligner
+from test_torch_slice import one_torch_thread  # noqa: F401
 
 
 def _locus(seed, period, n_samples=2, reads=12):

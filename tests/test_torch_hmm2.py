@@ -22,6 +22,7 @@ from hipstr_tpu.pipeline.hap_aligner import prepare_locus
 from hipstr_tpu.utils.simulate import simulate_locus
 from hipstr_tpu_torch.ops.hmm2 import batched_forward
 from hipstr_tpu_torch.pipeline.hap_aligner import locus_to_torch, stack_arrays
+from test_torch_slice import one_torch_thread  # noqa: F401
 
 TOL = 1e-8
 

@@ -11,6 +11,7 @@ import torch
 
 from hipstr_tpu.ops.posteriors import batched_pool_posteriors as jax_post
 from hipstr_tpu_torch.ops.posteriors import batched_pool_posteriors
+from test_torch_slice import one_torch_thread  # noqa: F401
 
 
 def _batch(seed, G=3, P=6, H=4, R=12, n_samples=3, Sm=4, n_pad=3):

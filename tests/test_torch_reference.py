@@ -13,7 +13,8 @@ from hipstr_tpu_torch import cli
 from hipstr_tpu_torch.utils.simdata import (REFERENCE_ARGS, reference_loci,
                                             write_sim)
 
-from test_torch_slice import ROOT, _body, _cli_args, run_jax_cli
+from test_torch_slice import (ROOT, _body, _cli_args,  # noqa: F401
+                              one_torch_thread, run_jax_cli)
 
 REF_VCF = os.path.join(ROOT, "tests", "data", "torch_port_ref_f64.vcf")
 

@@ -7,7 +7,9 @@
   writes that VCF too;
 * device errors end the run instead of failing single loci;
 * without a card or nvcc, the device and the kernel builder raise;
-* the CLI refuses the paths that are not ported.
+* the CLI refuses the paths that are not ported (the sequential path,
+  `--batch-loci 0`, is ported and held to the JAX package in
+  tests/test_torch_sequential.py).
 """
 
 import os
@@ -28,6 +30,20 @@ from hipstr_tpu_torch.utils.simdata import write_sim
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
+# the port's CLI subprocesses run torch on one thread (see one_torch_thread)
+ONE_THREAD = {"OMP_NUM_THREADS": "1"}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU path is thousands of small tensor ops.  With the test
+    workers sharing the cores, torch's intra-op threads oversubscribe them
+    and each op slows about tenfold, so the port's test modules (which
+    import this fixture) run torch on one thread."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
 
 
 def _opts():
@@ -57,9 +73,13 @@ SIM_ARGS = ["--min-reads", "12", "--use-unpaired", "--def-stutter-model",
 
 def run_jax_cli(args):
     """`python -m hipstr_tpu.cli` on the CPU in its own process (one JAX
-    device: the test session's 8-device CPU mesh is not inherited)."""
+    device: the test session's 8-device CPU mesh is not inherited).  It
+    keeps out of the CLI's shared persistent compile cache: JAX writes an
+    entry in place, so a CLI in another test worker could load it half
+    written (a SIGSEGV seen in a full parallel run)."""
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
-    env.update(PYTHONPATH=ROOT, JAX_PLATFORMS="cpu")
+    env.update(PYTHONPATH=ROOT, JAX_PLATFORMS="cpu",
+               HIPSTR_TPU_COMPILE_CACHE="")
     proc = subprocess.run([sys.executable, "-m", "hipstr_tpu.cli", *args],
                           cwd=ROOT, env=env, capture_output=True, text=True,
                           timeout=600)
@@ -108,7 +128,7 @@ def test_cli_runs_with_jax_blocked(sim):
               "            and sys.modules[m] is not None]\n"
               "sys.exit(rc)\n")
     args = _cli_args(d, f"{d}/nojax.vcf") + SIM_ARGS + ["--device", "cpu"]
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    env = dict(os.environ, PYTHONPATH=ROOT, **ONE_THREAD)
     proc = subprocess.run([sys.executable, "-c", script, *args], cwd=ROOT,
                           env=env, capture_output=True, text=True,
                           timeout=300)
@@ -164,10 +184,10 @@ DEF = "--def-stutter-model"
 @pytest.mark.parametrize("flags", [
     [DEF, "--workers", "2"], [DEF, "--host-workers", "3"],
     [DEF, "--distributed"], [DEF, "--profile", "p"],
-    [DEF, "--batch-loci", "0"], [DEF, "--platform", "cpu"],
-    []],                                     # no model: the stutter EM
-    ids=["workers", "host-workers", "distributed", "profile", "sequential",
-         "platform", "stutter-em"])
+    [DEF, "--platform", "cpu"],
+    []],                             # no model, batched: the batched EM
+    ids=["workers", "host-workers", "distributed", "profile", "platform",
+         "stutter-em"])
 def test_cli_refuses_unported_paths(flags, capsys, tmp_path):
     args = _cli_args(str(tmp_path), str(tmp_path / "x.vcf"))
     assert cli.main(args + ["--device", "cpu"] + flags) == 1
