@@ -10,7 +10,8 @@ Phases (any failure raises and exits non-zero):
      K3 fused segment) from hipstr_tpu_torch/csrc, one nvcc each, all at
      once;
   3. each kernel against its plain PyTorch version on the card, float32
-     and float64, at the main-path shape and a deep shape, with times;
+     and float64, at the main-path shape and a deep shape, with times, and
+     K1 and K2 at L = 384 and 512;
   4. the batched slice: `hipstr_tpu_torch.cli` in-process on 60 simulated
      30x trio loci (float32, --batch-loci 32); 60/60 genotyped, K1 and K2
      launched at least twice per dispatch, K3 and K4 never, JAX never
@@ -23,10 +24,19 @@ Phases (any failure raises and exits non-zero):
   7. the sequential run without a stutter model (host EM) on 8 loci;
   8. float64 cross-check: the port's VCF on the dataset behind
      tests/data/torch_port_ref_f64.vcf, batched and sequential, against
-     that file.
+     that file;
+  9. real shapes: each kernel at the two launch shapes its path used most
+     (K1 and K2 from phase 4's histogram, K4 from phase 5's, K3 from the
+     fused mode over the slice's loci), on the arguments that path really
+     passed (captured in a second run), float32 and float64: against its
+     plain version, CUDA-event times over 20 launches with L2 warm and with
+     L2 flushed (64 MiB written before each launch), and the bound the
+     card allows for that work (`bound`).
 
-Prints the kernel summary as one JSON line, then as the last line
-{"ok": true, "device": {...}}.  Needs one visible CUDA card.
+After every phase no module of JAX or of the JAX package may be loaded.
+Prints the kernel summary as one JSON line (per kernel its real-shape
+time, bound and share of the bound), then as the last line {"ok": true,
+"device": {...}}.  Needs one visible CUDA card.
 """
 
 from __future__ import annotations
@@ -61,10 +71,15 @@ TOL = {("emission", "float64"): (1e-10, 1e-10),
        ("segment_scan", "float32"): (1e-4, 1e-3)}
 MAIN = dict(G=32, O=8, P=64, L=128, Bmax=64, H=8)
 DEEP = dict(MAIN, P=256)
+# K1/K2 past 8 lanes a thread: other kernel instances (K2 keeps float64
+# lane constants in shared memory, K1 one thread per lane in float64)
+WIDE = (dict(MAIN, G=8, P=16, L=384), dict(MAIN, G=8, P=16, L=512))
 SCAN_DEEP_P = 1024   # K3/K4 deep shape: the largest pool bucket
 MODES_TOL = 1e-8     # flank vs fused LL, float64 (rtol and atol)
 EM_LOCI = 8
-SOURCES = {   # kernel -> (source, the TPU kernel it replaces)
+# kernel -> (source, the TPU kernel it replaces); each is checked in phase 3
+# and timed at its path's real launch shapes, beside its bound, in phase 9
+SOURCES = {
     "emission": ("hipstr_tpu_torch/csrc/emission.cu",
                  "hipstr_tpu/ops/pallas_emission.py:62"),
     "segment": ("hipstr_tpu_torch/csrc/segment.cu",
@@ -75,15 +90,33 @@ SOURCES = {   # kernel -> (source, the TPU kernel it replaces)
                      "hipstr_tpu/ops/pallas_hmm.py:130"),
 }
 SENTINEL = -1.0e20   # values at or below are NEG-derived padding
+# the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W):
+# float32 and float64 outside the tensor cores, and device memory
+PEAK_OPS = {"float32": 67e12, "float64": 34e12}
+PEAK_BYTES = 3.35e12
+REAL_REPS = 20                  # launches per real-shape timing
+FLUSH_BYTES = 64 << 20          # written before each L2-flushed launch
+TOP_SHAPES = 2
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def log_shapes(label: str, shapes: dict) -> None:
+    """The launch-shape histogram of each kernel, most frequent first."""
+    for name, hist in shapes.items():
+        log(f"{label}: {name} shapes " + ", ".join(
+            f"{s}x{n}" for s, n in hist.most_common()))
+
+
 def check_no_jax() -> None:
-    if sys.modules.get("jax") is not None:
-        raise AssertionError("jax was imported")
+    """Fail if JAX or any module of the JAX package is loaded."""
+    loaded = [m for m, mod in sys.modules.items() if mod is not None and (
+        m == "jax" or m.startswith("jax.") or m == "hipstr_tpu"
+        or m.startswith("hipstr_tpu."))]
+    if loaded:
+        raise AssertionError(f"loaded: {sorted(loaded)[:10]}")
 
 
 def nvidia_smi_line() -> str:
@@ -110,7 +143,7 @@ def phase_env():
         log(f"triton does not import: {exc}")
     card = nvidia_smi_line()
     log(card)
-    from hipstr_tpu_torch.host import native
+    from hipstr_tpu_torch import native
     log(f"native host library loaded: {native._load() is not None}")
     return card
 
@@ -212,15 +245,16 @@ def check_emission(shape, dtype_name, device, rng):
     err = compare("emission", got, ref, dtype_name)
     ms = cuda_ms(lambda: stutter_emissions(*args), 5)
     plain_ms = cuda_ms(lambda: stutter_emissions_plain(*args), 2)
-    return err, ms, plain_ms
+    return err, ms, plain_ms, bound_emission(args, {}, dtype_name)["bound_ms"]
 
 
 def real_locus(tmp):
     """One real locus of the slice's dataset, packed through the main
     path's host code and prepare_locus: (arrays, statics)."""
-    from hipstr_tpu_torch.host import (GenotyperPipeline, Logger,
-                                       PipelineOptions, StutterModel,
-                                       read_regions)
+    from hipstr_tpu_torch.io.regions import read_regions
+    from hipstr_tpu_torch.models.stutter import StutterModel
+    from hipstr_tpu_torch.pipeline.processor import (GenotyperPipeline,
+                                                     Logger, PipelineOptions)
     from hipstr_tpu_torch.pipeline.hap_aligner import prepare_locus
     opts = PipelineOptions(
         min_reads=15, use_unpaired=True, dtype="float32",
@@ -278,7 +312,8 @@ def check_segment(shape, dtype_name, device, rng, fw, statics):
     err = compare("segment", got, ref, dtype_name)
     ms = cuda_ms(lambda: segment_kernel(*args, R=R, sr=sr), 5)
     plain_ms = cuda_ms(lambda: segment_forward_plain(*args, R=R, sr=sr), 2)
-    return err, ms, plain_ms, R
+    b = bound_segment(args, dict(R=R, sr=sr), dtype_name)["bound_ms"]
+    return err, ms, plain_ms, b, R
 
 
 def scan_inputs(P, dtype_name, device, rng, arrays, statics):
@@ -320,7 +355,7 @@ def check_flank_scan(P, dtype_name, device, rng, arrays, statics):
               for g, r in zip(got, ref))
     ms = cuda_ms(lambda: flank_scan_kernel(*args), 5)
     plain_ms = cuda_ms(lambda: flank_scan_plain(*args), 2)
-    return err, ms, plain_ms
+    return err, ms, plain_ms, bound_flank_scan(args, {}, dtype_name)["bound_ms"]
 
 
 def check_segment_scan(P, dtype_name, device, rng, arrays, statics):
@@ -343,7 +378,15 @@ def check_segment_scan(P, dtype_name, device, rng, arrays, statics):
     err = compare("segment_scan", got, ref, dtype_name)
     ms = cuda_ms(lambda: segment_scan_kernel(*args), 5)
     plain_ms = cuda_ms(lambda: segment_scan_plain(*args), 2)
-    return err, ms, plain_ms
+    return err, ms, plain_ms, bound_segment_scan(args, {}, dtype_name)[
+        "bound_ms"]
+
+
+def timed(r) -> str:
+    """(err, kernel ms, plain ms, bound ms) as one line's part."""
+    err, ms, plain, b = r
+    return (f"err {err:.3e} kernel {ms:.3f} ms plain {plain:.3f} ms bound "
+            f"{b:.4f} ms ({100 * b / ms:.1f} %)")
 
 
 def phase_kernels(device, tmp):
@@ -357,27 +400,31 @@ def phase_kernels(device, tmp):
                             ("deep", DEEP, SCAN_DEEP_P)):
         for dtype_name in ("float32", "float64"):
             rng = np.random.default_rng(7)
-            e_err, e_ms, e_plain = check_emission(shape, dtype_name, device,
-                                                  rng)
-            s_err, s_ms, s_plain, R2 = check_segment(
-                shape, dtype_name, device, rng, arrays[2], statics)
+            e = check_emission(shape, dtype_name, device, rng)
+            *s, R2 = check_segment(shape, dtype_name, device, rng,
+                                   arrays[2], statics)
             f = check_flank_scan(P, dtype_name, device, rng, arrays, statics)
             k3 = check_segment_scan(P, dtype_name, device, rng, arrays,
                                     statics)
             results[(label, dtype_name)] = dict(
-                emission=(e_err, e_ms, e_plain), segment=(s_err, s_ms, s_plain),
-                flank_scan=f, segment_scan=k3)
+                emission=e, segment=tuple(s), flank_scan=f, segment_scan=k3)
             log(f"{label} {dtype_name} G={shape['G']} O={shape['O']} "
                 f"P={shape['P']} L={shape['L']} Bmax={shape['Bmax']} "
-                f"H={shape['H']} R={R2}: "
-                f"emission err {e_err:.3e} kernel {e_ms:.3f} ms plain "
-                f"{e_plain:.3f} ms | segment err {s_err:.3e} kernel "
-                f"{s_ms:.3f} ms plain {s_plain:.3f} ms")
+                f"H={shape['H']} R={R2}: emission {timed(e)} | segment "
+                f"{timed(s)}")
             log(f"{label} {dtype_name} one locus P={P} H={H} L={L} O={O} "
                 f"R={R} sr={statics[2]} period={statics[4]}: "
-                f"flank_scan err {f[0]:.3e} kernel {f[1]:.3f} ms plain "
-                f"{f[2]:.3f} ms | segment_scan err {k3[0]:.3e} kernel "
-                f"{k3[1]:.3f} ms plain {k3[2]:.3f} ms")
+                f"flank_scan {timed(f)} | segment_scan {timed(k3)}")
+    for shape in WIDE:
+        for dtype_name in ("float32", "float64"):
+            rng = np.random.default_rng(11)
+            e = check_emission(shape, dtype_name, device, rng)
+            s = check_segment(shape, dtype_name, device, rng, arrays[2],
+                              statics)
+            log(f"wide {dtype_name} G={shape['G']} P={shape['P']} "
+                f"L={shape['L']}: emission err {e[0]:.3e} kernel "
+                f"{e[1]:.3f} ms | segment err {s[0]:.3e} kernel "
+                f"{s[1]:.3f} ms")
     return results
 
 
@@ -398,6 +445,8 @@ def phase_slice(tmp, device_name="cuda"):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
+    shapes = {k: kernels.SHAPES[k].copy() for k in ("emission", "segment")}
+    log_shapes("slice", shapes)
     dispatches = pipeline.last_run_stats["dispatches"]
     device_wait = pipeline.timer.totals.get("Device fetch", 0.0)
     log(f"slice: success={counters.genotype_success} "
@@ -420,9 +469,9 @@ def phase_slice(tmp, device_name="cuda"):
     recs = vcf_body(f"{tmp}/slice.vcf")
     if len(recs) != SLICE_LOCI:
         raise AssertionError(f"slice VCF has {len(recs)} records")
-    return launches, dict(loci_per_s=SLICE_LOCI / wall, wall_s=wall,
-                          host_s=wall - device_wait,
-                          device_wait_s=device_wait)
+    return launches, shapes, dict(loci_per_s=SLICE_LOCI / wall, wall_s=wall,
+                                  host_s=wall - device_wait,
+                                  device_wait_s=device_wait)
 
 
 # ---------------------------------------------------------------- phase 5
@@ -445,6 +494,8 @@ def phase_sequential(tmp, device_name="cuda"):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
+    shapes = {k: kernels.SHAPES[k].copy() for k in ("emission", "flank_scan")}
+    log_shapes("sequential", shapes)
     n = hap_aligner.CALLS - calls0
     log(f"sequential: success={counters.genotype_success} "
         f"fail={counters.genotype_fail} aligner calls={n} "
@@ -461,8 +512,8 @@ def phase_sequential(tmp, device_name="cuda"):
     recs = vcf_body(f"{tmp}/seq.vcf")
     if len(recs) != SLICE_LOCI:
         raise AssertionError(f"sequential VCF has {len(recs)} records")
-    return launches, dict(loci_per_s=SLICE_LOCI / wall, wall_s=wall,
-                          aligner_calls=n)
+    return launches, shapes, dict(loci_per_s=SLICE_LOCI / wall, wall_s=wall,
+                                  aligner_calls=n)
 
 
 # ---------------------------------------------------------------- phase 6
@@ -472,9 +523,10 @@ def phase_modes(tmp, device):
     import numpy as np
     import torch
     from hipstr_tpu_torch import kernels
-    from hipstr_tpu_torch.host import (GenotyperPipeline, Logger,
-                                       PipelineOptions, StutterModel,
-                                       read_regions)
+    from hipstr_tpu_torch.io.regions import read_regions
+    from hipstr_tpu_torch.models.stutter import StutterModel
+    from hipstr_tpu_torch.pipeline.processor import (GenotyperPipeline,
+                                                     Logger, PipelineOptions)
     from hipstr_tpu_torch.pipeline.hap_aligner import \
         compute_hap_log_likelihoods
     opts = PipelineOptions(
@@ -521,8 +573,10 @@ def phase_modes(tmp, device):
     log(f"modes: {n} loci, max |LL flank - LL fused| {worst:.3e}; "
         f"ms per call flank {ms['flank']:.3f} fused {ms['fused']:.3f}; "
         f"launches={launches}")
-    return launches, dict(loci=n, max_abs_diff=worst, flank_ms=ms["flank"],
-                          fused_ms=ms["fused"])
+    loci_inputs = [locus for _, locus in loci]
+    return launches, loci_inputs, dict(loci=n, max_abs_diff=worst,
+                                       flank_ms=ms["flank"],
+                                       fused_ms=ms["fused"])
 
 
 # ---------------------------------------------------------------- phase 7
@@ -607,6 +661,291 @@ def phase_reference(tmp, device_name="cuda"):
         log(f"f64 cross-check ({label}): {len(got)} records, "
             f"{len(got) - len(diffs)} byte-identical to the reference")
 
+# ---------------------------------------------------------------- phase 9
+# The least time the card could take for a kernel's work on these inputs:
+# the larger of its operations over the peak rate of its type (an exp or a
+# log counted as one operation, and also reported on its own) and its
+# bytes over the memory rate (each input read once, each output written
+# once).  Only the work these inputs need is counted: the real block
+# lengths (K1), the active rows (K2, K3, K4), the emission planes of the
+# options real haplotypes use (K2, K3).
+#
+#   per DP cell (lane x row) of a flank row: 16 operations (em select, the
+#     insert chain's 5, M's 6, D's 3, 1 for the max-scan)
+#   row 0 and the forced-match row: 2 per lane; the stutter row: 13 terms
+#     of 8 operations (2 of them exp) and one log per lane
+#   K1, per lane of a real option (blen > 0) and block step (blen + 1 of
+#     them): 7 prefix updates of 2 operations, 12 log-sum-exp terms of 4
+#     (one exp), 6 insertion-shift updates of 5; per lane 6*period
+#     insertion-prefix steps of 2 operations and 13 outputs (a log each)
+FLANK_OPS, EDGE_OPS, STUTTER_OPS = 16, 2, 13 * 8 + 1
+K1_STEP_OPS, K1_STEP_EXP = 7 * 2 + 12 * 4 + 6 * 5, 12
+
+
+def bound(ops, nbytes, exp_log, dtype_name):
+    t_ops = ops / PEAK_OPS[dtype_name] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return dict(ops=ops, bytes=nbytes, exp_log=exp_log,
+                bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def used_planes(hap_opt, h_real):
+    """Emission planes (locus, option) that real haplotypes read."""
+    return sum(len(set(ho[:hr].tolist())) for ho, hr in zip(hap_opt, h_real))
+
+
+def bound_emission(args, kwargs, dtype_name):
+    codes, blw, blc, brev, blen, periods = (x.cpu() for x in args)
+    G, P, L = codes.shape
+    O, B = brev.shape[1:]
+    sz = blc.element_size()
+    steps = (blen + 1) * (blen > 0)                          # [G, O]
+    lanes_real = int((blen > 0).sum()) * P * L
+    per = periods.long()[:, None].expand(G, O)[blen > 0]
+    ops = P * L * (K1_STEP_OPS * int(steps.sum()) + 12 * int(per.sum())) \
+        + lanes_real * 13
+    exp_log = P * L * K1_STEP_EXP * int(steps.sum()) + lanes_real * 13
+    nbytes = G * P * L * (4 + 2 * sz) + G * O * (B + 1) * 4 + G * 4 \
+        + G * O * 13 * P * L * sz
+    return bound(ops, nbytes, exp_log, dtype_name)
+
+
+def bound_segment(args, kwargs, dtype_name):
+    R, sr = kwargs["R"], kwargs["sr"]
+    codes, blc = args[0], args[2]
+    hap_opt, bounds = args[11].cpu(), args[14].cpu()
+    G, P, L = codes.shape
+    H, O = args[6].shape[1], args[10].shape[1]
+    sz = blc.element_size()
+    start1, end3, h_real = (bounds[:, k].long() for k in range(3))
+    flank = (sr - start1) + (end3 - sr - 2)                  # [G]
+    per_lane = FLANK_OPS * flank + 2 * EDGE_OPS + STUTTER_OPS
+    lanes = h_real * P * L
+    ops = int((lanes * per_lane).sum())
+    exp_log = int(lanes.sum()) * (2 * 13 + 1)
+    nbytes = G * P * L * (4 + 4 * sz) + G * P * 4 + G * H * R * (4 + 3 * sz) \
+        + used_planes(hap_opt, h_real.tolist()) * 13 * P * L * sz \
+        + G * H * (8 + 13 * sz) + G * 16 + G * H * R * P * sz
+    return bound(ops, nbytes, exp_log, dtype_name)
+
+
+def bound_flank_scan(args, kwargs, dtype_name):
+    codes, blc, active = args[0], args[2], args[10].cpu()
+    P, L = codes.shape
+    n_rows, H = args[6].shape
+    sz = blc.element_size()
+    ops = FLANK_OPS * int(active.bool().sum()) * P * H * L
+    nbytes = P * L * (4 + 4 * sz) + P * 4 + n_rows * H * (4 + 3 * sz) \
+        + n_rows * 4 + 6 * P * H * L * sz + n_rows * P * H * sz
+    return bound(ops, nbytes, 0, dtype_name)
+
+
+def bound_segment_scan(args, kwargs, dtype_name):
+    codes, blc, meta, R, sr = args[0], args[2], args[6], args[8], args[9]
+    P, L = codes.shape
+    H = meta.row_char.shape[0]
+    sz = blc.element_size()
+    active = meta.row_active.cpu().bool()
+    flank = int(active[1:sr].sum()) + int(active[sr + 2:].sum())
+    lanes = P * H * L
+    ops = lanes * (FLANK_OPS * flank + 2 * EDGE_OPS + STUTTER_OPS)
+    planes = len(set(meta.hap_opt.cpu().tolist()))
+    nbytes = P * L * (4 + 4 * sz) + P * 4 + H * R * (4 + 3 * sz) + R * 4 \
+        + planes * 13 * P * L * sz + H * (8 + 13 * sz) + R * P * H * sz
+    return bound(ops, nbytes, lanes * (2 * 13 + 1), dtype_name)
+
+
+class Capture:
+    """While active, calls to `module.attr` (a kernel wrapper) go through,
+    and the arguments of the first call of each wanted shape (any shape
+    when `wanted` is None) are kept, cloned."""
+
+    def __init__(self, module, attr, shape_of, wanted=None):
+        self.module, self.attr = module, attr
+        self.shape_of, self.wanted = shape_of, wanted
+        self.args = {}
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.attr)
+
+        def wrapper(*args, **kwargs):
+            s = self.shape_of(*args)
+            if (self.wanted is None or s in self.wanted) \
+                    and s not in self.args:
+                self.args[s] = (clone(args), dict(kwargs))
+            return self.orig(*args, **kwargs)
+
+        setattr(self.module, self.attr, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.attr, self.orig)
+
+
+def clone(x):
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, tuple):
+        parts = [clone(v) for v in x]
+        return type(x)(*parts) if hasattr(x, "_fields") else tuple(parts)
+    return x
+
+
+def as_dtype(x, dt):
+    """x with every floating tensor converted to dt."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.to(dt).contiguous() if x.is_floating_point() else x
+    if isinstance(x, tuple):
+        parts = [as_dtype(v, dt) for v in x]
+        return type(x)(*parts) if hasattr(x, "_fields") else tuple(parts)
+    return x
+
+
+def event_ms(fn, reps: int, flush=None) -> float:
+    """Mean device time of one `fn()` over `reps` launches, CUDA events
+    around each launch, after one warm-up.  The launches are queued behind
+    a device sleep, so the host's wrapper time does not show as device
+    idle.  With `flush` (a tensor of FLUSH_BYTES) the tensor is written
+    before every launch, so each launch finds L2 cold."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(50_000_000)
+    for start, end in events:
+        if flush is not None:
+            flush.zero_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / reps
+
+
+def top(hist, n=TOP_SHAPES):
+    return [s for s, _ in hist.most_common(n)]
+
+
+def shape_emission(codes, blw, blc, brev, *rest):
+    return (codes.shape[0], brev.shape[1], codes.shape[1], codes.shape[2],
+            brev.shape[2])
+
+
+def shape_segment(*args):
+    codes, row_char, E = args[0], args[6], args[10]
+    return (codes.shape[0], row_char.shape[1], codes.shape[1],
+            codes.shape[2], row_char.shape[2], E.shape[1])
+
+
+def shape_flank_scan(*args):
+    P, L = args[0].shape
+    n_rows, H = args[6].shape
+    return (P, H, L, n_rows)
+
+
+def shape_segment_scan(*args):
+    P, L = args[0].shape
+    meta = args[6]
+    return (P, meta.row_char.shape[0], L, args[8], meta.lpmf.shape[0])
+
+
+def time_real(name, kernel, plain, bound_fn, args, kwargs, shape, count,
+              flush):
+    """One kernel at one captured shape, float32 and float64: error
+    against the plain version, warm and flushed times, plain time, bound."""
+    import torch
+    from hipstr_tpu_torch.device import resolve_dtype
+    rows = []
+    for dtype_name in ("float32", "float64"):
+        a = as_dtype(args, resolve_dtype(dtype_name))
+        got, ref = kernel(*a, **kwargs), plain(*a, **kwargs)
+        torch.cuda.synchronize()
+        if isinstance(got, tuple):
+            err = max(compare(name, g, r, dtype_name)
+                      for g, r in zip(got, ref))
+        else:
+            err = compare(name, got, ref, dtype_name)
+        warm = event_ms(lambda: kernel(*a, **kwargs), REAL_REPS)
+        cold = event_ms(lambda: kernel(*a, **kwargs), REAL_REPS, flush)
+        plain_ms = cuda_ms(lambda: plain(*a, **kwargs), 1)
+        b = bound_fn(a, kwargs, dtype_name)
+        row = dict(shape=list(shape), launches_at_shape=count,
+                   dtype=dtype_name, max_abs_err=err, ms=cold, ms_warm=warm,
+                   plain_ms=plain_ms, share=b["bound_ms"] / cold, **b)
+        log(f"real {name} {shape}x{count} {dtype_name}: err {err:.3e} "
+            f"L2-flushed {cold:.4f} ms warm {warm:.4f} ms plain "
+            f"{plain_ms:.3f} ms | bound {b['bound_ms']:.4f} ms by "
+            f"{b['bound_by']} ({b['ops']:.3e} ops, {b['bytes']:.3e} bytes, "
+            f"{b['exp_log']:.3e} exp/log): {100 * row['share']:.1f} % of "
+            f"the bound")
+        rows.append(row)
+    return rows
+
+
+def phase_real_shapes(tmp, device, slice_shapes, seq_shapes, loci):
+    """Each kernel at its path's two most frequent launch shapes, on the
+    arguments that path passed (captured in a second run of it)."""
+    import torch
+    from hipstr_tpu_torch import cli, kernels
+    from hipstr_tpu_torch.ops import hmm2, hmm_scan
+    from hipstr_tpu_torch.ops.emission import stutter_emissions
+    from hipstr_tpu_torch.ops.stutter_emission import stutter_emissions_plain
+    from hipstr_tpu_torch.pipeline.hap_aligner import \
+        compute_hap_log_likelihoods
+    base = ["--bams", f"{tmp}/sim.bam", "--fasta", f"{tmp}/sim.fa",
+            "--regions", f"{tmp}/regions.bed", "--min-reads", "15",
+            "--use-unpaired", "--def-stutter-model", "--dtype", "float32",
+            "--device", "cuda", "--silent"]
+    k1 = Capture(hmm2, "stutter_emissions", shape_emission,
+                 top(slice_shapes["emission"]))
+    k2 = Capture(hmm2, "segment_kernel", shape_segment,
+                 top(slice_shapes["segment"]))
+    with k1, k2:
+        cli.run(base + ["--batch-loci", "32", "--str-vcf", f"{tmp}/cap.vcf"])
+    k4 = Capture(hmm_scan, "flank_scan_kernel", shape_flank_scan,
+                 top(seq_shapes["flank_scan"]))
+    with k4:
+        cli.run(base + ["--batch-loci", "0", "--str-vcf", f"{tmp}/cap0.vcf"])
+    kernels.reset_launches()
+    k3 = Capture(hmm_scan, "segment_scan_kernel", shape_segment_scan)
+    with k3:
+        for locus in loci:
+            compute_hap_log_likelihoods(*locus, dtype="float32",
+                                        device=device, mode="fused")
+    k3_shapes = kernels.SHAPES["segment_scan"].copy()
+    log_shapes("fused mode", {"segment_scan": k3_shapes})
+    hists = dict(emission=slice_shapes["emission"],
+                 segment=slice_shapes["segment"],
+                 flank_scan=seq_shapes["flank_scan"],
+                 segment_scan=k3_shapes)
+    table = {
+        "emission": (k1, stutter_emissions, stutter_emissions_plain,
+                     bound_emission),
+        "segment": (k2, hmm2.segment_kernel, hmm2.segment_forward_plain,
+                    bound_segment),
+        "flank_scan": (k4, hmm_scan.flank_scan_kernel,
+                       hmm_scan.flank_scan_plain, bound_flank_scan),
+        "segment_scan": (k3, hmm_scan.segment_scan_kernel,
+                         hmm_scan.segment_scan_plain, bound_segment_scan),
+    }
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=device)
+    results = {}
+    for name, (cap, kernel, plain, bound_fn) in table.items():
+        results[name] = []
+        for shape in top(hists[name]):
+            if shape not in cap.args:
+                raise AssertionError(f"{name}: shape {shape} not captured")
+            args, kwargs = cap.args[shape]
+            results[name] += time_real(name, kernel, plain, bound_fn, args,
+                                       kwargs, shape, hists[name][shape],
+                                       flush)
+    del flush
+    return results
+
 
 def main() -> int:
     import torch
@@ -616,7 +955,9 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     card = phase_env()
+    check_no_jax()
     phase_build()
+    check_no_jax()
     from hipstr_tpu_torch.device import resolve_device
     from hipstr_tpu_torch.utils.simdata import trio_loci, write_sim
     device = resolve_device("cuda")
@@ -628,23 +969,34 @@ def main() -> int:
         log(f"dataset: {SLICE_LOCI} loci x 3 samples x {SLICE_READS} reads "
             f"in {time.perf_counter() - t0:.2f} s")
         kres = phase_kernels(device, f"{tmp}/slice")
+        check_no_jax()
         # each path's launches, counted from 0 over that path's run
-        launches, slice_stats = phase_slice(f"{tmp}/slice")
-        seq_launches, seq_stats = phase_sequential(f"{tmp}/slice")
-        mode_launches, mode_stats = phase_modes(f"{tmp}/slice", device)
+        launches, slice_shapes, slice_stats = phase_slice(f"{tmp}/slice")
+        seq_launches, seq_shapes, seq_stats = phase_sequential(
+            f"{tmp}/slice")
+        mode_launches, loci, mode_stats = phase_modes(f"{tmp}/slice", device)
         phase_em(f"{tmp}/slice")
         phase_reference(f"{tmp}/ref")
-    check_no_jax()
+        check_no_jax()
+        real = phase_real_shapes(f"{tmp}/slice", device, slice_shapes,
+                                 seq_shapes, loci)
+        check_no_jax()
     log(json.dumps({"slice": slice_stats, "sequential": seq_stats,
                     "modes": mode_stats, "card": card}))
     launches.update(flank_scan=seq_launches["flank_scan"],
                     segment_scan=mode_launches["segment_scan"])
     main32 = kres[("main", "float32")]
-    summary = {"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": main32[name][0],
-         "ms": main32[name][1], "plain_ms": main32[name][2]}
-        for name, (src, rep) in SOURCES.items()]}
+    summary = {"kernels": []}
+    for name, (src, rep) in SOURCES.items():
+        r = real[name][0]            # the most frequent shape, float32
+        summary["kernels"].append(dict(
+            name=name, route="cuda", source=src, replaces=rep,
+            launches=launches[name], max_abs_err=r["max_abs_err"],
+            ms=r["ms"], ms_warm=r["ms_warm"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            share=r["share"], exp_log=r["exp_log"], shape=r["shape"],
+            library_ms=None, main_shape_ms=main32[name][1],
+            main_shape_bound_ms=main32[name][3]))
     if not all(k["launches"] > 0 for k in summary["kernels"]):
         raise AssertionError(f"a kernel was never launched: {summary}")
     print(json.dumps(summary), flush=True)

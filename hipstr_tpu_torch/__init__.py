@@ -2,19 +2,24 @@
 
 The layout mirrors `hipstr_tpu` so each module's counterpart is easy to
 find.  The JAX package stays the reference; this package imports `torch`
-and never `jax`.  Host-side code that never touched JAX (BAM/FASTA/VCF IO,
-filters, haplotype generation, the genotyper's adaptive rounds, VCF
-records) is imported from `hipstr_tpu` through `host.py`.
+and never `jax`, and nothing of `hipstr_tpu`: the host code it needs (BAM,
+CRAM, FASTA and VCF IO, filters, haplotype generation, the genotyper's
+adaptive rounds, the host stutter EM, VCF records, the native host
+library's bindings) is a copy of the JAX package's, each module where its
+counterpart sits, its docstring naming the file it came from.
 
 Package layout:
   device.py    device / dtype resolution (explicit, never falls back)
-  host.py      the one bridge into hipstr_tpu's JAX-free host code
   kernels.py   nvcc build + ctypes loading of csrc/*.cu, launch counters
   csrc/        hand-written CUDA C++ kernels for sm_90a
+  native.py    the native host library (native/*.cpp, built here) + bindings
+  align/ io/ models/ phasing/    host layers (copies)
   ops/         HMM containers, stutter emissions, segment forward,
-               seed combination, fused genotype posteriors
-  pipeline/    per-locus packing (prepare_locus) and the torch aligner
+               seed combination, posteriors (torch and host), host EM
+  pipeline/    per-locus packing (prepare_locus), the torch aligner, the
+               sequential run, and the host pipeline (copies)
   parallel/    the batched executor (run_batched)
+  utils/       simulated datasets, math, timers
   cli.py       `python -m hipstr_tpu_torch.cli`
 """
 

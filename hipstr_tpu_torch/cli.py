@@ -1,6 +1,7 @@
 """hipstr-tpu-torch command line: `python -m hipstr_tpu_torch.cli`.
 
-The JAX package's flag table (hipstr_tpu.cli.build_parser) plus
+`build_parser` is a copy of the JAX package's flag table
+(hipstr_tpu/cli.py::build_parser), every flag as it is there, plus
 `--device cuda|cpu` (default cuda; `cuda` without a visible card is an
 error).  The batched in-process run (`--batch-loci N`, N > 0, with a
 stutter model) and the sequential run (`--batch-loci 0`, with a model or
@@ -11,17 +12,137 @@ fall back.
 
 from __future__ import annotations
 
+import argparse
 import sys
 
 from .device import resolve
-from .host import (GenotyperPipeline, Logger, OutputConfig, PipelineOptions,
-                   StutterModel, build_parser)
+from .models.stutter import StutterModel
+from .pipeline.processor import GenotyperPipeline, Logger, PipelineOptions
+from .pipeline.vcf_record import OutputConfig
 
 
-def _parser():
-    ap = build_parser()
-    ap.prog = "hipstr-tpu-torch"
-    ap.description = "STR genotyper (HipSTR-compatible), PyTorch/CUDA port"
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="hipstr-tpu-torch",
+        description="STR genotyper (HipSTR-compatible), PyTorch/CUDA port")
+    ap.add_argument("--bams", help="Comma separated list of BAM files")
+    ap.add_argument("--bam-files", help="File listing BAM files, one per line")
+    ap.add_argument("--fasta", required=True)
+    ap.add_argument("--regions", required=True, help="BED file of STR regions")
+    ap.add_argument("--str-vcf",
+                    help="Output VCF (bgzipped when path ends in .gz); "
+                         "required unless --skip-genotyping")
+    ap.add_argument("--bam-samps", help="Comma separated sample per BAM")
+    ap.add_argument("--bam-libs", help="Comma separated library per BAM")
+    ap.add_argument("--chrom", default="")
+    ap.add_argument("--haploid-chrs", default="")
+    ap.add_argument("--hap-chr-file", default="",
+                    help="File of haploid chromosome names, one per line")
+    ap.add_argument("--max-mate-dist", type=int, default=1000,
+                    help="Maximum distance between a read and its mate pair")
+    ap.add_argument("--read-qual-trim", default="5",
+                    help="Trim read ends whose base quality is <= this "
+                         "character (Phred+33)")
+    ap.add_argument("--lib-field", default="LB",
+                    help="Read group field naming each read's library")
+    ap.add_argument("--sample-list", default="",
+                    help="Comma separated samples to restrict the analysis to")
+    ap.add_argument("--pass-bam", help="Output BAM of reads used for "
+                    "genotyping (PF tag marks haplotype-generation passes)")
+    ap.add_argument("--filt-bam", help="Output BAM of filtered reads "
+                    "(FT tag records the filter reason)")
+    ap.add_argument("--skip-genotyping", action="store_true",
+                    help="Learn stutter models / filter reads only; no VCF")
+    ap.add_argument("--min-reads", type=int, default=100)
+    ap.add_argument("--max-reads", type=int, default=1000000)
+    ap.add_argument("--max-str-len", type=int, default=100)
+    ap.add_argument("--max-haps", type=int, default=1000)
+    ap.add_argument("--max-hap-flanks", type=int, default=4)
+    ap.add_argument("--min-flank-freq", type=float, default=0.01)
+    ap.add_argument("--use-unpaired", action="store_true")
+    ap.add_argument("--no-rmdup", action="store_true")
+    ap.add_argument("--def-stutter-model", action="store_true",
+                    help="Use PGEOM=0.9, UP=DOWN=0.05 (in) / 0.01 (out)")
+    ap.add_argument("--ref-vcf", help="Reference panel VCF: use its alleles "
+                    "as candidates instead of mining reads")
+    ap.add_argument("--snp-vcf", help="Bgzipped VCF of phased SNP genotypes")
+    ap.add_argument("--fam", help="FAM pedigree for phasing quality control")
+    ap.add_argument("--10x-bams", dest="bams_from_10x", action="store_true",
+                    help="BAM files were generated by 10X Genomics (HP tags)")
+    ap.add_argument("--viz-out", help="Bgzipped output file of alignment "
+                    "visualizations (see the vizaln entry point)")
+    ap.add_argument("--locus-shard", default="",
+                    help="'i/N': process every Nth locus starting at i "
+                         "(data-parallel sharding across hosts/processes; "
+                         "merge shard VCFs afterwards)")
+    ap.add_argument("--batch-loci", type=int, default=32,
+                    help="Genotype up to N same-shape loci per device "
+                         "dispatch (default 32; 0 = strict sequential loop, "
+                         "byte-identical output either way)")
+    ap.add_argument("--stutter-in")
+    ap.add_argument("--stutter-out")
+    ap.add_argument("--output-gls", action="store_true")
+    ap.add_argument("--output-pls", action="store_true")
+    ap.add_argument("--output-phased-gls", action="store_true")
+    ap.add_argument("--output-filters", action="store_true")
+    ap.add_argument("--output-hap-fields", action="store_true",
+                    help="Write additional fields about the full haplotypes "
+                         "(LFLANKS/RFLANKS, HQ/PHQ/LFGT/RFGT)")
+    ap.add_argument("--hide-allreads", action="store_true",
+                    help="Don't output the ALLREADS FORMAT field")
+    ap.add_argument("--hide-mallreads", action="store_true",
+                    help="Don't output the MALLREADS FORMAT field")
+    ap.add_argument("--viz-left-alns", action="store_true",
+                    help="Visualize left-aligned alignments instead of the "
+                         "maximum-likelihood traced ones")
+    ap.add_argument("--version", action="version", version="hipstr-tpu 0.1")
+    ap.add_argument("--max-flank-indel", type=float, default=0.15)
+    ap.add_argument("--max-regions", type=int, default=1000000000)
+    ap.add_argument("--workers", type=int, default=1,
+                    help="Run N worker processes over locus shards and merge "
+                         "their outputs (host-parallel scale-out; workers "
+                         "default to the CPU backend unless --platform is "
+                         "given). Incompatible with --pass-bam/--filt-bam.")
+    ap.add_argument("--host-workers", type=int, default=-1,
+                    help="Run per-locus host phases (decode, filters, EM, "
+                         "adaptive loop, VCF assembly) in N worker processes "
+                         "while this process owns the device and services "
+                         "all batched alignments. Unlike --workers, the "
+                         "single accelerator is shared. Incompatible with "
+                         "--pass-bam/--filt-bam (falls back to in-process). "
+                         "Default -1 = auto: engage the pool on accelerator "
+                         "backends when spare cores exist (outputs are "
+                         "byte-identical either way); 1 = in-process.")
+    ap.add_argument("--distributed", action="store_true",
+                    help="Multi-host data parallelism via jax.distributed: "
+                         "every process genotypes its share of loci "
+                         "(BED/FASTA replicated, loci sharded by process "
+                         "index), counters are reduced across hosts, and "
+                         "process 0 merges the shard VCFs. On TPU pods the "
+                         "coordinator is autodetected; elsewhere pass "
+                         "--coordinator/--num-processes/--process-id.")
+    ap.add_argument("--coordinator", default="",
+                    help="host:port of the jax.distributed coordinator "
+                         "(process 0); empty = autodetect (TPU pods)")
+    ap.add_argument("--num-processes", type=int, default=0,
+                    help="Total process count for --distributed when the "
+                         "coordinator is given explicitly")
+    ap.add_argument("--process-id", type=int, default=-1,
+                    help="This process's index for --distributed when the "
+                         "coordinator is given explicitly")
+    ap.add_argument("--quiet", action="store_true")
+    ap.add_argument("--profile", metavar="DIR",
+                    help="Capture a jax.profiler device/host trace of the "
+                         "run into DIR (view with TensorBoard or Perfetto); "
+                         "the per-phase host timing table always prints at "
+                         "exit (reference's per-locus timers: "
+                         "src/genotyper_bam_processor.cpp:254-276)")
+    ap.add_argument("--silent", action="store_true")
+    ap.add_argument("--log")
+    ap.add_argument("--dtype", default="float32",
+                    choices=["float32", "float64"])
+    ap.add_argument("--platform", default="",
+                    help="Force a JAX platform (e.g. cpu); float64 requires cpu")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="Torch device for the alignment kernels "
                          "(default cuda; never falls back to the CPU)")
@@ -56,7 +177,7 @@ def run(argv=None):
     """Parse `argv` and run the batched or (`--batch-loci 0`) sequential
     pipeline; returns (pipeline, counters).  Raises UsageError for a refused command line; device and
     kernel errors propagate."""
-    args = _parser().parse_args(argv)
+    args = build_parser().parse_args(argv)
     missing = not_ported(args)
     if missing:
         raise UsageError(f"{missing} is not yet ported to hipstr_tpu_torch")

@@ -8,10 +8,13 @@ loaded.  Builds happen at first use, into
 `build/hipstr_tpu_torch/` at the repository root (listed in .gitignore).
 A missing nvcc or a failed build raises; nothing falls back.
 
-`LAUNCHES` counts kernel launches by name.  Only the wrappers that launch
-a kernel add to it, right after the launch.  `DeviceError` marks a failure
-of device work (a build, a launch, a transfer) that must end a run rather
-than fail one locus.
+`LAUNCHES` counts kernel launches by name, and `SHAPES` holds beside it
+the histogram of each kernel's launch shapes: (G, O, P, L, Bmax) for
+emission (K1), (G, H, P, L, R, O) for segment (K2), (P, H, L, n_rows) for
+flank_scan (K4) and (P, H, L, R, O) for segment_scan (K3).  Only the
+wrappers that launch a kernel add to them, right after the launch.
+`DeviceError` marks a failure of device work (a build, a launch, a
+transfer) that must end a run rather than fail one locus.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import os
 import shutil
 import subprocess
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict
@@ -39,6 +43,7 @@ MAX_LANES = 512
 
 LAUNCHES: Dict[str, int] = {"emission": 0, "segment": 0, "flank_scan": 0,
                             "segment_scan": 0}
+SHAPES: Dict[str, Counter] = {k: Counter() for k in LAUNCHES}
 # name -> {"seconds": build time, "ptxas": compiler resource report}
 BUILD_INFO: Dict[str, dict] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -48,7 +53,7 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "emission": [_P] * 7 + [_I] * 5 + [_P],
-    "segment": [_P] * 16 + [_I] * 8 + [_P],
+    "segment": [_P] * 16 + [_I] * 10 + [_P],
     "flank_scan": [_P] * 18 + [_I] * 4 + [_P],
     "segment_scan": [_P] * 16 + [_I] * 7 + [_P],
 }
@@ -61,8 +66,10 @@ class DeviceError(RuntimeError):
 
 
 def reset_launches() -> None:
+    """Set every launch count to 0 and empty every shape histogram."""
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        SHAPES[k].clear()
 
 
 def find_nvcc() -> str:
@@ -131,12 +138,14 @@ def launcher(name: str, dtype: torch.dtype):
                    f"{name}_{'f64' if dtype == torch.float64 else 'f32'}")
 
 
-def check_launch(name: str, rc: int) -> None:
-    """Raise on a non-zero cudaGetLastError() from a launcher."""
+def check_launch(name: str, rc: int, shape: tuple) -> None:
+    """Raise on a non-zero cudaGetLastError() from a launcher; count the
+    launch and its shape."""
     if rc != 0:
         raise RuntimeError(f"CUDA kernel '{name}' failed to launch: "
                            f"cudaError {rc}")
     LAUNCHES[name] += 1
+    SHAPES[name][shape] += 1
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

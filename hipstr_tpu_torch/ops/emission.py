@@ -49,5 +49,5 @@ def stutter_emissions(codes, blw, blc, brev, blen, periods):
             kernels.ptr(brev), kernels.ptr(blen), kernels.ptr(periods),
             kernels.ptr(E), ctypes.c_int(G), ctypes.c_int(O), ctypes.c_int(P),
             ctypes.c_int(L), ctypes.c_int(Bmax), kernels.stream())
-    kernels.check_launch("emission", rc)
+    kernels.check_launch("emission", rc, (G, O, P, L, Bmax))
     return E

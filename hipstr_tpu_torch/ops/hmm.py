@@ -21,7 +21,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from hipstr_tpu.models.base_quality import BaseQuality
+from ..models.base_quality import BaseQuality
 
 IMPOSSIBLE = -1.0e9
 NEG = -1.0e30

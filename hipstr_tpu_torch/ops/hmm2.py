@@ -3,8 +3,9 @@ plain version, the seed combination and the batched forward pass.
 
 Counterpart of hipstr_tpu/ops/pallas_hmm2.py.  `segment_forward` runs one
 orientation for a batch of loci; on a CUDA tensor it launches the
-hand-written kernel csrc/segment.cu or raises, and a CPU tensor takes the
-plain PyTorch loop over rows (`segment_forward_plain`).  Both follow
+hand-written kernel csrc/segment.cu (one warp per (locus, haplotype, pool)
+chain, launched as `segment_geometry` says) or raises, and a CPU tensor
+takes the plain PyTorch loop over rows (`segment_forward_plain`).  Both follow
 `segment_forward_v2`: runtime periods and real haplotype counts per locus,
 rows outside the active bounds skipped and left NEG.  `batched_forward`
 keeps the output contract of `batched_forward_v2`: [G, P, H] with NEG
@@ -14,6 +15,7 @@ garbage in padded haplotype columns.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -21,6 +23,74 @@ from .. import kernels
 from .emission import stutter_emissions
 from .hmm import (IMPOSSIBLE, NEG, SeedMeta, emit, expand_quals, flank_row,
                   forced_match_row, stutter_row)
+
+
+# ---- K2 launch geometry (csrc/segment.cu) ----------------------------------
+SEGMENT_LANES = (64, 128, 192, 256, 384, 512)  # L: V = L/32 lanes a thread
+SEGMENT_WARPS = (8, 4, 2, 1)                   # warps a block, preferred first
+SMEM_BLOCK = 232448      # shared memory a block may use on the H100 (227 KB)
+SMEM_SM = 233472         # shared memory of one SM (228 KB)
+SMEM_RESERVED = 1024     # the runtime's reservation per block
+ND = 13                  # artifact sizes (E's third axis)
+
+
+class SegmentGeometry(NamedTuple):
+    grid: Tuple[int, int, int]   # (ceil(P / warps), H, G)
+    warps: int                   # W: one warp per (g, h, p) chain
+    threads: int                 # 32 * W
+    smem: int                    # dynamic shared memory, bytes
+    lanes_per_thread: int        # V = L / 32
+    shared_lanes: bool           # lane constants in shared memory
+
+
+def segment_smem(W: int, L: int, R: int, itemsize: int,
+                 shared_lanes: bool) -> int:
+    """Bytes of shared memory of one K2 block, in the kernel's order: per
+    warp the 13 emission planes and the stutter row's M ([14][L]) and, with
+    shared_lanes, the lane constants (w, c, C, Csh and the code of each of
+    its L lanes); per block the [R][W] tile of last-column M, the three
+    transition rows, the 13 log artifact probabilities and the row chars."""
+    slab = L * (4 * itemsize + 4) if shared_lanes else 0
+    return W * ((ND + 1) * L * itemsize + slab) \
+        + (R * W + 3 * R + ND) * itemsize + R * 4
+
+
+def segment_geometry(G: int, H: int, P: int, L: int, R: int,
+                     dtype) -> SegmentGeometry:
+    """The K2 launch for one orientation: grid, warps a block (the W of
+    SEGMENT_WARPS, no more than P, that keeps the most warps resident on an
+    SM; ties to the larger), shared memory.  Raises on what the kernel does
+    not take."""
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"segment_forward: dtype {dtype}")
+    if L not in SEGMENT_LANES:
+        raise ValueError(f"segment_forward: L={L} not in {SEGMENT_LANES}")
+    if min(G, H, P) < 1 or R < 2:
+        raise ValueError(f"segment_forward: G={G} H={H} P={P} R={R}")
+    itemsize = 8 if dtype == torch.float64 else 4
+    shared = itemsize == 8 and L > 256
+
+    def smem(W):
+        return segment_smem(W, L, R, itemsize, shared)
+
+    def resident(W):
+        return W * min(32, 64 // W, SMEM_SM // (smem(W) + SMEM_RESERVED))
+
+    fits = [W for W in SEGMENT_WARPS if W <= P and smem(W) <= SMEM_BLOCK]
+    if not fits:
+        raise ValueError(f"segment_forward: R={R} L={L} needs "
+                         f"{smem(1)} bytes of shared memory per warp")
+    W = max(fits, key=lambda w: (resident(w), w))
+    return SegmentGeometry(((P + W - 1) // W, H, G), W, 32 * W, smem(W),
+                           L // 32, shared)
+
+
+def segment_chain(geom: SegmentGeometry, block: Tuple[int, int, int],
+                  warp: int, P: int) -> Optional[Tuple[int, int, int]]:
+    """The (g, h, p) chain that `warp` of `block` (x, y, z) runs in the
+    kernel, or None for a warp past the last pool."""
+    p = block[0] * geom.warps + warp
+    return (block[2], block[1], p) if p < P else None
 
 
 def row_bounds(row_active, R: int, sr: int, h_real, periods):
@@ -146,9 +216,11 @@ def segment_kernel(codes, blw, blc, C, Csh, last_col, row_char, m2m, m2i,
     H = row_char.shape[1]
     O, nD = E.shape[1], E.shape[2]
     dtype, dev = blc.dtype, codes.device
-    kernels.check_lanes("segment_forward", dtype, L)
+    geom = segment_geometry(G, H, P, L, R, dtype)
     if not 0 < sr < R:
         raise ValueError(f"segment_forward: stutter row {sr} outside [1, {R})")
+    if nD != ND:
+        raise ValueError(f"segment_forward: {nD} artifact sizes, not {ND}")
     i32 = torch.int32
     for name, t, dt, shape in (
             ("codes", codes, i32, (G, P, L)), ("blw", blw, dtype, (G, P, L)),
@@ -168,9 +240,10 @@ def segment_kernel(codes, blw, blc, C, Csh, last_col, row_char, m2m, m2i,
     ptrs = [kernels.ptr(t) for t in (codes, blw, blc, C, Csh, last_col,
                                      row_char, m2m, m2i, m2d, E, hap_opt,
                                      shift, lpmf_h, bounds, Mcol)]
-    ints = [ctypes.c_int(v) for v in (G, H, P, L, R, O, nD, sr)]
+    ints = [ctypes.c_int(v) for v in (G, H, P, L, R, O, nD, sr, geom.warps,
+                                      geom.smem)]
     rc = fn(*ptrs, *ints, kernels.stream())
-    kernels.check_launch("segment", rc)
+    kernels.check_launch("segment", rc, (G, H, P, L, R, O))
     return Mcol
 
 

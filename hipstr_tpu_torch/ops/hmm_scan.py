@@ -90,7 +90,7 @@ def flank_scan_kernel(codes, blw, blc, C, Csh, last_col, row_char, row_m2m,
                                      I, D, Mcol, Mo, Io, Do)]
     ints = [ctypes.c_int(v) for v in (P, H, L, n_rows)]
     rc = fn(*ptrs, *ints, kernels.stream())
-    kernels.check_launch("flank_scan", rc)
+    kernels.check_launch("flank_scan", rc, (P, H, L, n_rows))
     return Mo, Io, Do, Mcol
 
 
@@ -157,6 +157,6 @@ def segment_scan_kernel(codes, blw, blc, C, Csh, last_col, meta, E, R: int,
                                      hap_opt, shift, lpmf_h, Mcol)]
     ints = [ctypes.c_int(v) for v in (P, H, L, R, nD, sr, period)]
     rc = fn(*ptrs, *ints, kernels.stream())
-    kernels.check_launch("segment_scan", rc)
+    kernels.check_launch("segment_scan", rc, (P, H, L, R, O))
     return Mcol
 

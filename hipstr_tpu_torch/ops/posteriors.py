@@ -1,22 +1,32 @@
-"""Fused genotype posteriors for a batch of loci, in PyTorch.
+"""Genotype posteriors: the fused batched posteriors in PyTorch, and the
+host (numpy, float64) posteriors and genotype extraction.
 
-Counterpart of hipstr_tpu/ops/posteriors.py::batched_pool_posteriors (an
-XLA op in the JAX package, not a Pallas kernel; reference
-src/genotyper.cpp:44-80 plus the mate-pair LL summing of
-seq_stutter_genotyper.cpp:530-564).  The per-sample sum is a contraction
-with a one-hot [G, R, Sm] sample matrix in the working dtype (TF32 is off,
-device.py), so the result does not depend on the order atomics land in:
-the VCF is the same from run to run.
+`batched_pool_posteriors` is the counterpart of
+hipstr_tpu/ops/posteriors.py::batched_pool_posteriors (an XLA op in the
+JAX package, not a Pallas kernel; reference src/genotyper.cpp:44-80 plus
+the mate-pair LL summing of seq_stutter_genotyper.cpp:530-564).  The
+per-sample sum is a contraction with a one-hot [G, R, Sm] sample matrix in
+the working dtype (TF32 is off, device.py), so the result does not depend
+on the order atomics land in: the VCF is the same from run to run.
+
+`log_genotype_priors`, `read_genotype_lls`, `sample_posteriors` and
+`extract_genotypes` are copies of the numpy functions of
+hipstr_tpu/ops/posteriors.py (reference src/genotyper.cpp:20-251) that the
+host genotyper, the VCF records and the stutter EM call, without the JAX
+branches: `xp` is numpy.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 NEG = -1.0e30
 LOG_ONE_HALF = math.log(0.5)
+LOG_E_BASE_10 = 0.4342944819  # reference constant (src/mathops.cpp:11)
 
 
 def batched_pool_posteriors(LL, pm: dict, Sm: int, dtype):
@@ -76,3 +86,178 @@ def batched_pool_posteriors(LL, pm: dict, Sm: int, dtype):
     totals = mx + torch.log(torch.sum(torch.exp(flat - mx[:, :, None]), dim=2))
     log_post = unnorm - totals[:, :, None, None]
     return log_post, totals
+
+
+def log_genotype_priors(xp, num_alleles, haploid: bool, dtype=np.float64):
+    """[A, A] prior matrix (reference: src/genotyper.cpp:20-42).
+
+    Diploid: phased het 1/(n(n+1)), homozygous 2/(n(n+1)).
+    Haploid: homozygous 1/n, het impossible.
+    """
+    A = num_alleles
+    eye = xp.eye(A, dtype=bool)
+    if haploid:
+        homo = -math.log(A)
+        het = -1.0e308 / 2 if dtype == np.float64 else NEG
+        return xp.where(eye, xp.asarray(homo, dtype=dtype), het)
+    homo = math.log(2.0) - math.log(A) - math.log(A + 1)
+    het = -math.log(A) - math.log(A + 1)
+    return xp.where(eye, xp.asarray(homo, dtype=dtype),
+                    xp.asarray(het, dtype=dtype))
+
+
+def read_genotype_lls(xp, log_aln_probs, log_p1, log_p2, read_weights):
+    """[reads, A, A] per-read genotype log-likelihood contributions.
+
+    reference: the inner expression of calc_log_sample_posteriors
+    (src/genotyper.cpp:51-61).
+    """
+    t1 = LOG_ONE_HALF + log_p1[:, None] + log_aln_probs      # [R, A]
+    t2 = LOG_ONE_HALF + log_p2[:, None] + log_aln_probs      # [R, A]
+    a = t1[:, :, None]
+    b = t2[:, None, :]
+    m = xp.maximum(a, b)
+    lse = m + xp.log1p(xp.exp(xp.minimum(a, b) - m))
+    return read_weights[:, None, None] * lse
+
+
+def sample_posteriors(xp, log_aln_probs, log_p1, log_p2, read_weights,
+                      sample_index, num_samples, priors):
+    """Normalized per-sample genotype posteriors + total LLs.
+
+    Returns (log_post [S, A, A], sample_total_LL [S], total_LL scalar).
+    reference: src/genotyper.cpp:44-80.
+    """
+    contrib = read_genotype_lls(xp, log_aln_probs, log_p1, log_p2, read_weights)
+    A = log_aln_probs.shape[1]
+    sums = _segment_sum(xp, contrib, sample_index, num_samples)
+    unnorm = priors[None, :, :] + sums
+    flat = unnorm.reshape(num_samples, A * A)
+    m = xp.max(flat, axis=1)
+    totals = m + xp.log(xp.sum(xp.exp(flat - m[:, None]), axis=1))
+    log_post = unnorm - totals[:, None, None]
+    return log_post, totals, xp.sum(totals)
+
+
+def _segment_sum(xp, contrib, sample_index, num_samples):
+    out = np.zeros((num_samples,) + contrib.shape[1:], dtype=contrib.dtype)
+    np.add.at(out, sample_index, contrib)
+    return out
+
+
+class GenotypeExtraction(NamedTuple):
+    best_hap_a: np.ndarray           # [S] ML haplotype pair (phased)
+    best_hap_b: np.ndarray
+    best_gt_a: np.ndarray            # [S] ML variant alleles
+    best_gt_b: np.ndarray
+    log_phased_post: np.ndarray      # [S] posterior of ML phased genotype
+    log_unphased_post: np.ndarray    # [S]
+    hap_log_phased_post: np.ndarray  # [S] same at haplotype level
+    hap_log_unphased_post: np.ndarray
+    gls: np.ndarray | None           # [S, V*(V+1)/2] log10 GLs (diploid order)
+    gl_diffs: np.ndarray | None      # [S]
+    pls: np.ndarray | None           # [S, G]
+    phased_gls: np.ndarray | None    # [S, V*V]
+
+
+def extract_genotypes(log_post: np.ndarray, sample_total_LLs: np.ndarray,
+                      hap_to_allele: np.ndarray, num_variants: int,
+                      haploid: bool, num_alleles: int,
+                      calc_gls=False, calc_pls=False, calc_phased_gls=False
+                      ) -> GenotypeExtraction:
+    """Marginalize haplotype posteriors to variant genotypes + likelihoods.
+
+    Host-side (numpy, float64); mirrors
+    Genotyper::extract_genotypes_and_likelihoods (src/genotyper.cpp:129-251)
+    including the prior-removal corrections for GL/PHASEDGL.
+    """
+    S, A, _ = log_post.shape
+    V = num_variants
+    flat = log_post.reshape(S, A * A)
+    best = np.argmax(flat, axis=1)
+    best_a, best_b = best // A, best % A
+    best_gt_a = hap_to_allele[best_a]
+    best_gt_b = hap_to_allele[best_b]
+
+    # marginalize haplotype pairs -> variant pairs
+    gt_index = (hap_to_allele[:, None] * V + hap_to_allele[None, :]).reshape(-1)
+    marg = np.full((S, V * V), -np.inf)
+    for g in range(V * V):
+        mask = gt_index == g
+        if mask.any():
+            vals = flat[:, mask]
+            m = vals.max(axis=1)
+            marg[:, g] = m + np.log(np.sum(np.exp(vals - m[:, None]), axis=1))
+
+    sidx = np.arange(S)
+    hap_lpp = flat[sidx, best_a * A + best_b]
+    alt = flat[sidx, best_b * A + best_a]
+    same = best_a == best_b
+    hap_lup = np.where(same, hap_lpp, np.logaddexp(hap_lpp, alt))
+
+    lpp = marg[sidx, best_gt_a * V + best_gt_b]
+    alt2 = marg[sidx, best_gt_b * V + best_gt_a]
+    same_gt = best_gt_a == best_gt_b
+    lup = np.where(same_gt, lpp, np.logaddexp(lpp, alt2))
+
+    gls = gl_diffs = pls = phased_gls = None
+    if calc_gls or calc_pls or calc_phased_gls:
+        hom_corr = (-math.log(num_alleles) if haploid
+                    else math.log(2) - math.log(num_alleles) - math.log(num_alleles + 1))
+        het_corr = (0.0 if haploid
+                    else -math.log(num_alleles) - math.log(num_alleles + 1))
+        if haploid:
+            gl_ncfg = math.log(2) + math.log(num_alleles) - math.log(V)
+            pgl_ncfg = math.log(num_alleles) - math.log(V)
+        else:
+            gl_ncfg = math.log(2) + 2 * (math.log(num_alleles) - math.log(V))
+            pgl_ncfg = 2 * (math.log(num_alleles) - math.log(V))
+
+        gls_list = [[] for _ in range(S)]
+        pgl_list = [[] for _ in range(S)]
+        for i1 in range(V):
+            for i2 in range(V):
+                g = i1 * V + i2
+                ag = i2 * V + i1
+                corr = hom_corr if i1 == i2 else het_corr
+                if (i2 <= i1) and (not haploid or i1 == i2):
+                    base = (sample_total_LLs - (corr + gl_ncfg)
+                            + np.logaddexp(marg[:, g], marg[:, ag]))
+                    for s in range(S):
+                        gls_list[s].append(base[s] * LOG_E_BASE_10)
+                if calc_phased_gls and (not haploid or i1 == i2):
+                    val = (sample_total_LLs - (corr + pgl_ncfg)
+                           + marg[:, g]) * LOG_E_BASE_10
+                    for s in range(S):
+                        pgl_list[s].append(val[s])
+        gls = np.array(gls_list)
+        if calc_phased_gls:
+            phased_gls = np.array(pgl_list)
+
+        # GLDIFF (reference: src/genotyper.cpp:106-127)
+        gl_diffs = np.empty(S)
+        for s in range(S):
+            g = gls[s]
+            if V == 1:
+                gl_diffs[s] = -1000.0
+                continue
+            mx = g.max()
+            lower = g[g < mx]
+            second = lower.max() if lower.size else mx
+            if haploid:
+                gi = best_gt_a[s]
+            else:
+                mn, mxg = sorted((best_gt_a[s], best_gt_b[s]))
+                gi = mxg * (mxg + 1) // 2 + mn
+            gl_diffs[s] = (mx - second if abs(mx - g[gi]) < 1e-10
+                           else g[gi] - mx)
+
+        if calc_pls:
+            mx = gls.max(axis=1, keepdims=True)
+            pls = np.minimum(999, (-10 * (gls - mx)).astype(np.int64))
+        if not calc_gls:
+            gls = None
+
+    return GenotypeExtraction(best_a, best_b, best_gt_a, best_gt_b,
+                              lpp, lup, hap_lpp, hap_lup,
+                              gls, gl_diffs, pls, phased_gls)

@@ -13,10 +13,15 @@ ending at j against the repeat block carrying that artifact, marginalised
 over the artifact's position.  Intermediates are [rows, artifacts, Bmax+1,
 L]; `stutter_emissions_plain` chunks the rows so they stay near
 `max_elems` elements.
+
+`stutter_emissions` (per read, numpy) is a copy of the gather form of
+hipstr_tpu/ops/stutter_emission.py, which the host HMM oracle
+(align/hmm_reference.py) calls; its helpers carry an `_np` suffix here.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 NEG_INF = -1.0e30
@@ -176,3 +181,163 @@ def stutter_emissions_plain(codes, blw, blc, brev, blen, periods,
                 int(period), max_units)
         out[g] = Eg.view(O, P, nD, L).permute(0, 2, 1, 3)
     return out
+
+
+# ---- numpy, per read: the host HMM oracle's emissions ----------------
+
+def _score_matrix_np(xp, read_codes, blw, blc, block_rev_codes, block_len, Bmax):
+    """S[t, k] = log P(read[t] | block char b_rev[k]); 0 outside the block."""
+    eq = read_codes[:, None] == block_rev_codes[None, :Bmax]
+    S = xp.where(eq, blc[:, None], blw[:, None])
+    kmask = xp.arange(Bmax)[None, :] < block_len
+    return xp.where(kmask, S, 0.0)
+
+
+def _hankel_prefix_np(xp, S, Bmax):
+    """pref[..., j, p] = sum_{t<p, t<=j} S[..., j-t, t] for p in [0, Bmax].
+
+    Anti-diagonal prefix sums over the last two axes: gather S into
+    X[..., j, t] = S[..., j-t, t] (zero when j < t), then cumulative-sum.
+    """
+    L = S.shape[-2]
+    j_idx = xp.arange(L)[:, None]
+    t_idx = xp.arange(Bmax)[None, :]
+    rows = j_idx - t_idx                       # [L, Bmax]
+    valid = rows >= 0
+    rows_b = xp.broadcast_to(rows, S.shape[:-2] + rows.shape)
+    X = xp.take_along_axis(S, xp.clip(rows_b, 0, L - 1), axis=-2)
+    X = xp.where(valid, X, 0.0)
+    csum = xp.cumsum(X, axis=-1)
+    zero = xp.zeros(S.shape[:-1] + (1,), dtype=S.dtype)
+    return xp.concatenate([zero, csum], axis=-1)  # [..., L, Bmax+1]
+
+
+def _logsumexp_np(xp, x, axis):
+    m = xp.max(x, axis=axis, keepdims=True)
+    m = xp.where(xp.isfinite(m), m, 0.0)
+    return xp.squeeze(m, axis=axis) + xp.log(xp.sum(xp.exp(x - m), axis=axis))
+
+
+def stutter_emissions(xp, read_codes, blw, blc, block_rev_codes, block_len,
+                      period, max_units=6):
+    """Emission tensor E[L, nD] over artifact sizes D = k*period,
+    k in [-max_units, max_units] (deletions first, ascending).
+
+    Entries with block_len + D < 0 are NEG_INF (impossible artifact).
+    `block_len` may be a traced scalar; `period`, `max_units`, and the padded
+    length of `block_rev_codes` (Bmax) are static.
+    """
+    L = read_codes.shape[0]
+    Bmax = block_rev_codes.shape[0]
+    dtype = blc.dtype
+
+    blen = xp.asarray(block_len, dtype=np.int32)
+    S = _score_matrix_np(xp, read_codes, blw, blc, block_rev_codes, blen, Bmax)
+    pref0 = _hankel_prefix_np(xp, S, Bmax)        # [L, Bmax+1]
+    p_axis = xp.arange(Bmax + 1)
+    j_axis = xp.arange(L)
+
+    def fdt(v):
+        return xp.asarray(v).astype(dtype)
+
+    # ---- no-artifact: E0[j] = pref0[j, block_len] ---------------------------
+    E0 = xp.take_along_axis(
+        pref0, xp.broadcast_to(blen, (L, 1)).astype(np.int32), axis=1)[:, 0]
+
+    # ---- deletions (D = -dp, dp = d*period, d = max_units..1) ---------------
+    nd = max_units
+    dps = xp.asarray(np.arange(max_units, 0, -1) * period)        # [nd]
+    colidx = xp.arange(Bmax)[None, :] + dps[:, None]              # [nd, Bmax]
+    col_ok = (colidx < blen) & (colidx < Bmax)
+    SD = xp.take_along_axis(
+        xp.broadcast_to(S[None], (nd, L, Bmax)),
+        xp.broadcast_to(xp.clip(colidx, 0, Bmax - 1)[:, None, :],
+                        (nd, L, Bmax)), axis=-1)
+    SD = xp.where(col_ok[:, None, :], SD, 0.0)                    # [nd, L, Bmax]
+    prefD = _hankel_prefix_np(xp, SD, Bmax)                          # [nd, L, Bmax+1]
+    rem = xp.clip(blen - dps, 0, Bmax)                            # [nd]
+    totalD = xp.take_along_axis(
+        prefD, xp.broadcast_to(rem[:, None, None], (nd, L, 1)
+                               ).astype(np.int32), axis=-1)[..., 0]  # [nd, L]
+    LLp = pref0[None] + (totalD[..., None] - prefD)               # [nd, L, Bmax+1]
+    pmask = p_axis[None, None, :] <= (blen - dps)[:, None, None]
+    LLp = xp.where(pmask, LLp, NEG_INF)
+    lse_del = _logsumexp_np(xp, LLp, axis=-1)                        # [nd, L]
+    prior_del = -xp.log(fdt(xp.maximum(blen - dps + 1, 1)))       # [nd]
+    E_del = xp.where((blen - dps >= 0)[:, None],
+                     prior_del[:, None] + lse_del, NEG_INF)       # [nd, L]
+
+    # ---- insertions (D = kp, kp = k*period, k = 1..max_units) ---------------
+    max_ins = max_units * period
+    t_idx = xp.arange(max_ins)[None, :]
+    rows = j_axis[:, None] - t_idx                                # [L, max_ins]
+    rvalid = rows >= 0
+    rclip = xp.clip(rows, 0, L - 1)
+    colmod = xp.asarray(np.arange(max_ins) % period, dtype=np.int32)
+    # inserted-base scores: periodic extension b_rev[t % period]; plain
+    # log-correct when the periodic index falls outside the block
+    # (load_read, StutterAlignerClass.cpp:40-48)
+    Speri = xp.take_along_axis(
+        S, xp.broadcast_to(colmod[None, :], (L, max_ins)), axis=1)
+    isc = xp.take_along_axis(Speri, rclip, axis=0)
+    blc_sh = xp.take_along_axis(
+        xp.broadcast_to(blc[:, None], (L, max_ins)), rclip, axis=0)
+    isc = xp.where(colmod[None, :] >= blen, blc_sh, isc)
+    isc = xp.where(rvalid, isc, 0.0)
+    ins_cum = xp.concatenate(
+        [xp.zeros((L, 1), dtype=dtype), xp.cumsum(isc, axis=1)], axis=1)
+
+    kps = np.arange(1, max_units + 1) * period                    # static [nk]
+    ins0 = ins_cum[:, np.minimum(kps, max_ins)]                   # [L, nk]
+    # match remainder after the insertion: E0[j - kp] when j >= kp
+    rest_rows = j_axis[None, :] - xp.asarray(kps)[:, None]        # [nk, L]
+    rest = xp.take_along_axis(
+        xp.broadcast_to(E0[None, :], (len(kps), L)),
+        xp.clip(rest_rows, 0, L - 1), axis=1)
+    rest = xp.where(rest_rows >= 0, rest, 0.0)                    # [nk, L]
+    LL0 = ins0.T + rest                                           # [nk, L]
+
+    # per-unit position-shift deltas (the incremental update of
+    # StutterAlignerClass.cpp:73-96 in closed form), stacked over units m
+    q_idx = xp.arange(1, Bmax + 1)[None, :]                       # [1, Q]
+    SA = _shifted_cols_np(xp, S, period, Bmax)    # SA[t, q-1] = S[t, q-1+period]
+    SB = S                                     # SB[t, q-1] = S[t, q-1]
+    m_sh = xp.asarray(np.arange(1, max_units + 1) * period)       # [nm]
+    rows_m = (j_axis[None, :, None] - (q_idx[None] - 1)
+              - m_sh[:, None, None])                              # [nm, L, Q]
+    rv = rows_m >= 0
+    rc = xp.clip(rows_m, 0, L - 1)
+    gA = xp.take_along_axis(xp.broadcast_to(SA[None], rc.shape), rc, axis=1)
+    gB = xp.take_along_axis(xp.broadcast_to(SB[None], rc.shape), rc, axis=1)
+    G = gA - gB
+    frozen = (q_idx - 1 + period) >= blen                         # [1, Q]
+    G = xp.where(frozen[None] | ~rv, 0.0, G)
+    deltas = xp.cumsum(G, axis=0)                                 # [nm, L, Q]
+
+    cum = xp.concatenate(
+        [xp.zeros((len(kps), L, 1), dtype=dtype),
+         xp.cumsum(deltas, axis=-1)], axis=-1) + LL0[..., None]   # [nk, L, Bmax+1]
+    # configs beyond P*(j,k) repeat the value at P*
+    base_len = xp.minimum(blen + xp.asarray(kps)[:, None], j_axis[None, :] + 1)
+    Pstar = xp.clip(base_len - xp.asarray(kps)[:, None], 0, blen)  # [nk, L]
+    pc = xp.minimum(xp.broadcast_to(p_axis[None, None, :],
+                                    (len(kps), L, Bmax + 1)),
+                    Pstar[..., None]).astype(np.int32)
+    LLfinal = xp.take_along_axis(cum, pc, axis=-1)
+    pmask_i = p_axis[None, None, :] <= blen
+    LLfinal = xp.where(pmask_i, LLfinal, NEG_INF)
+    lse_ins = _logsumexp_np(xp, LLfinal, axis=-1)                    # [nk, L]
+    E_ins = -xp.log(fdt(blen + 1)) + lse_ins
+
+    return xp.concatenate(
+        [xp.swapaxes(E_del, 0, 1), E0[:, None], xp.swapaxes(E_ins, 0, 1)],
+        axis=1)  # [L, 2*max_units+1]
+
+
+def _shifted_cols_np(xp, S, period, Bmax):
+    """SA[t, q] = S[t, q + period] for q in [0, Bmax), zero beyond."""
+    L = S.shape[0]
+    if period < Bmax:
+        pad = xp.zeros((L, period), dtype=S.dtype)
+        return xp.concatenate([S[:, period:], pad], axis=1)[:, :Bmax]
+    return xp.zeros((L, Bmax), dtype=S.dtype)

@@ -26,11 +26,13 @@ import numpy as np
 import torch
 
 from ..device import resolve_dtype
-from ..host import (VCFWriter, build_vcf_header, build_vcf_record,
-                    read_regions, write_stutter_models)
+from ..io.regions import read_regions
+from ..io.vcf_write import VCFWriter, build_vcf_header
+from ..models.stutter import write_stutter_models
 from ..ops.hmm2 import batched_forward
 from ..ops.posteriors import batched_pool_posteriors
 from ..pipeline.hap_aligner import locus_to_torch, prepare_locus, stack_arrays
+from ..pipeline.vcf_record import build_vcf_record
 
 
 def _leaf_shapes(x) -> tuple:
@@ -219,7 +221,7 @@ def run_batched(pipeline, regions_bed: str, out_vcf: Optional[str],
                 g, pipeline.samples, opts.output)
         viz = None
         if pipeline.viz_writer is not None and stats.viz_data is not None:
-            from hipstr_tpu.pipeline.viz import visualize_alignments
+            from ..pipeline.viz import visualize_alignments
             alns_by_sample = {}
             for s, entries in enumerate(stats.viz_data):
                 if entries:

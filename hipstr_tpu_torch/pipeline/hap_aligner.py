@@ -9,11 +9,11 @@ extents, so there is no compile count to save with coarser buckets).
 `locus_to_torch` turns such a pytree (the port's or the JAX package's,
 read by field name) into the port's containers of tensors.
 
-`compute_hap_log_likelihoods` takes the JAX module's arguments, so
-`host.py` can register this module under the JAX module's name where JAX
-is not loaded and the genotyper's sequential rounds call it; the batched
-executor never calls it.  It runs on the device that `use_device`
-installed (the sequential runner installs it) and never picks one itself.
+`compute_hap_log_likelihoods` takes the JAX module's arguments; the port's
+genotyper (pipeline/genotyper.py) imports it for its sequential rounds,
+and the batched executor never calls it.  It runs on the device that
+`use_device` installed (the sequential runner installs it) and never picks
+one itself.
 """
 
 from __future__ import annotations
@@ -21,9 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from hipstr_tpu.align.haplotype import Haplotype
-from hipstr_tpu.align.packing import pack_haplotypes, pack_reads
-
+from ..align.haplotype import Haplotype
+from ..align.packing import pack_haplotypes, pack_reads
 from ..device import resolve_dtype
 from ..kernels import DeviceError
 from ..ops.hmm import HapMeta, SeedMeta, SegmentInputs, hmm_forward

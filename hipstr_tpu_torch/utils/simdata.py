@@ -9,9 +9,9 @@ machine.
 
 from __future__ import annotations
 
-from hipstr_tpu.io.bam import BamRecord, BamWriter
-from hipstr_tpu.io.fasta import write_fasta
-from hipstr_tpu.utils.simulate import simulate_locus
+from ..io.bam import BamRecord, BamWriter
+from ..io.fasta import write_fasta
+from .simulate import simulate_locus
 
 
 def write_sim(tmp: str, locs) -> None:

@@ -20,7 +20,8 @@ from hipstr_tpu.parallel.batch_builder import build_demo_batch
 from hipstr_tpu.pipeline.genotyper import calc_seed_base
 from hipstr_tpu.pipeline.hap_aligner import prepare_locus
 from hipstr_tpu.utils.simulate import simulate_locus
-from hipstr_tpu_torch.ops.hmm2 import batched_forward
+from hipstr_tpu_torch.ops.hmm2 import (SMEM_BLOCK, batched_forward,
+                                       segment_chain, segment_geometry)
 from hipstr_tpu_torch.pipeline.hap_aligner import locus_to_torch, stack_arrays
 from test_torch_slice import one_torch_thread  # noqa: F401
 
@@ -103,3 +104,37 @@ def test_mixed_period_batch_with_padded_haplotypes():
                                    rtol=TOL, atol=TOL)
         # padded haplotype columns are NEG garbage the callers slice off
         assert (got[g, :, h_real[g]:] < -1e20).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("L", [64, 128, 256, 512])
+def test_segment_geometry_covers_every_chain_once(L, dtype):
+    """K2's launch (csrc/segment.cu): every (g, h, p) chain is run by
+    exactly one warp, within 1024 threads and 227 KB of shared memory a
+    block, from the shortest rows to the longest bucket (R up to 450)."""
+    for G, H, P, R in ((1, 1, 1, 2), (3, 5, 7, 50), (2, 16, 64, 130),
+                       (4, 8, 96, 450)):
+        geom = segment_geometry(G, H, P, L, R, dtype)
+        assert geom.threads == 32 * geom.warps <= 1024
+        assert geom.smem <= SMEM_BLOCK
+        assert geom.lanes_per_thread * 32 == L
+        assert geom.shared_lanes == (dtype == torch.float64 and L > 256)
+        seen = [segment_chain(geom, (x, y, z), w, P)
+                for x in range(geom.grid[0]) for y in range(geom.grid[1])
+                for z in range(geom.grid[2]) for w in range(geom.warps)]
+        chains = [c for c in seen if c is not None]
+        assert len(chains) == len(set(chains)) == G * H * P
+        assert set(chains) == {(g, h, p) for g in range(G)
+                               for h in range(H) for p in range(P)}
+
+
+@pytest.mark.parametrize("bad", [
+    dict(L=96), dict(L=1024), dict(L=48), dict(dtype=torch.float16),
+    dict(P=0), dict(R=1), dict(L=512, R=10000, dtype=torch.float64)],
+    ids=["L96", "L1024", "L48", "float16", "no-pools", "one-row",
+         "rows-past-shared-memory"])
+def test_segment_geometry_refuses_what_the_kernel_does_not_take(bad):
+    args = dict(G=2, H=4, P=16, L=128, R=130, dtype=torch.float32)
+    args.update(bad)
+    with pytest.raises(ValueError, match="segment_forward"):
+        segment_geometry(**args)

@@ -183,16 +183,19 @@ def test_non_cpu_tensor_never_takes_plain_version(kernel):
 
 
 def test_build_key_hashes_the_shared_header(monkeypatch, tmp_path):
-    """Editing csrc/dp_rows.cuh, which K2, K3 and K4 include, moves every
-    kernel library to a new path, so a stale build is never loaded."""
+    """Editing a shared header, csrc/dp_rows.cuh (which K3 and K4 include)
+    or csrc/dp_warp.cuh (which K2 includes), moves every kernel library to
+    a new path, so a stale build is never loaded."""
     csrc = tmp_path / "csrc"
     shutil.copytree(kernels.CSRC, csrc)
     monkeypatch.setattr(kernels, "CSRC", csrc)
-    before = {n: kernels.library_path(n) for n in kernels.LAUNCHES}
-    assert kernels.library_path("segment") == before["segment"]
-    hdr = csrc / "dp_rows.cuh"
-    hdr.write_text(hdr.read_text() + "\n// edited\n")
-    after = {n: kernels.library_path(n) for n in kernels.LAUNCHES}
-    assert all(before[n] != after[n] for n in kernels.LAUNCHES)
-    for name in ("segment", "flank_scan", "segment_scan"):
-        assert '#include "dp_rows.cuh"' in (csrc / f"{name}.cu").read_text()
+    for header, users in (("dp_rows.cuh", ("flank_scan", "segment_scan")),
+                          ("dp_warp.cuh", ("segment",))):
+        before = {n: kernels.library_path(n) for n in kernels.LAUNCHES}
+        assert kernels.library_path("segment") == before["segment"]
+        hdr = csrc / header
+        hdr.write_text(hdr.read_text() + "\n// edited\n")
+        after = {n: kernels.library_path(n) for n in kernels.LAUNCHES}
+        assert all(before[n] != after[n] for n in kernels.LAUNCHES)
+        for name in users:
+            assert f'#include "{header}"' in (csrc / f"{name}.cu").read_text()

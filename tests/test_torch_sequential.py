@@ -8,11 +8,9 @@
 * in-process `run_sequential`, and `--host-workers 3` with `--batch-loci
   0` (which runs sequentially, as in the JAX CLI), write that VCF as well;
 * faults: the aligner has no CPU default device; a DeviceError ends the
-  run; a host error fails one locus and the run goes on; the run refuses a
-  genotyper bound to the JAX aligner.
-
-In this pytest session JAX is loaded (conftest), so the genotyper binds
-the JAX aligner; the in-process tests bind the port's with monkeypatch.
+  run; a host error fails one locus and the run goes on;
+* the port's genotyper aligns with the port's aligner, bound by a plain
+  import, though JAX is loaded in this session (conftest).
 """
 
 import os
@@ -26,14 +24,14 @@ import torch
 from hipstr_tpu.utils.simulate import simulate_locus
 from hipstr_tpu_torch import cli
 from hipstr_tpu_torch.kernels import DeviceError
-from hipstr_tpu_torch.pipeline import hap_aligner, sequential
+from hipstr_tpu_torch.pipeline import genotyper, hap_aligner, sequential
 from hipstr_tpu_torch.utils.simdata import write_sim
 from tests.test_hmm_kernel import _mk_haplotype, _reads_from_hap
-from test_torch_slice import (ONE_THREAD, ROOT, _body, _cli_args, _pipeline,
-                              one_torch_thread, run_jax_cli)  # noqa: F401
+from test_torch_slice import (ASSERT_NO_JAX_PACKAGE, ONE_THREAD, ROOT, _body,
+                              _cli_args, _pipeline, one_torch_thread,
+                              run_jax_cli)  # noqa: F401
 
 CPU = torch.device("cpu")
-GENOTYPER = "hipstr_tpu.pipeline.genotyper"
 # the options of test_torch_slice._opts() on the command line, sequential
 SEQ_ARGS = ["--min-reads", "12", "--use-unpaired", "--def-stutter-model",
             "--dtype", "float64", "--batch-loci", "0"]
@@ -67,24 +65,13 @@ def em_sim(tmp_path_factory):
     return d, _body(f"{d}/jax.vcf")
 
 
-@pytest.fixture
-def port_binding(monkeypatch):
-    """Bind the genotyper to the port's aligner, as host.py does where JAX
-    is not loaded."""
-    monkeypatch.setattr(sys.modules[GENOTYPER], "compute_hap_log_likelihoods",
-                        hap_aligner.compute_hap_log_likelihoods)
-
-
 def _run_port_cli_without_jax(args):
     script = ("import sys; sys.modules['jax'] = None\n"
               "from hipstr_tpu_torch.cli import main\n"
               "rc = main(sys.argv[1:])\n"
-              "aligner = sys.modules['hipstr_tpu.pipeline.hap_aligner']\n"
-              "assert aligner.__name__ == "
-              "'hipstr_tpu_torch.pipeline.hap_aligner', aligner.__name__\n"
-              "assert aligner.CALLS > 0\n"
-              "assert not [m for m in sys.modules if m.startswith('jax')\n"
-              "            and sys.modules[m] is not None]\n"
+              "from hipstr_tpu_torch.pipeline import hap_aligner\n"
+              "assert hap_aligner.CALLS > 0\n"
+              + ASSERT_NO_JAX_PACKAGE +
               "sys.exit(rc)\n")
     env = dict(os.environ, PYTHONPATH=ROOT, **ONE_THREAD)
     proc = subprocess.run([sys.executable, "-c", script, *args,
@@ -110,7 +97,7 @@ def test_cli_sequential_vcf_equals_jax(model, request):
             open(f"{d}/jax.stutter").read()
 
 
-def test_run_sequential_vcf_equals_jax(sim, port_binding):
+def test_run_sequential_vcf_equals_jax(sim):
     d, want = sim
     calls = hap_aligner.CALLS
     counters = sequential.run_sequential(_pipeline(d), f"{d}/regions.bed",
@@ -121,7 +108,7 @@ def test_run_sequential_vcf_equals_jax(sim, port_binding):
     assert hap_aligner._DEVICE is None       # the run's device is uninstalled
 
 
-def test_host_workers_with_batch_loci_0_runs_sequentially(sim, port_binding):
+def test_host_workers_with_batch_loci_0_runs_sequentially(sim):
     d, want = sim
     pipeline, counters = cli.run(_cli_args(d, f"{d}/hw.vcf") + SEQ_ARGS
                                  + ["--host-workers", "3", "--device",
@@ -145,7 +132,7 @@ def test_aligner_has_no_default_device(monkeypatch):
     assert LL.shape == (3, hap.num_combs)
 
 
-def test_device_error_ends_the_run(sim, port_binding, monkeypatch):
+def test_device_error_ends_the_run(sim, monkeypatch):
     """A failure of the device part of an alignment (a kernel that fails to
     build or launch) propagates out of run_sequential as DeviceError; it
     is not counted as a failed locus."""
@@ -160,7 +147,7 @@ def test_device_error_ends_the_run(sim, port_binding, monkeypatch):
                                   f"{d}/broken.vcf", CPU)
 
 
-def test_host_error_fails_one_locus(sim, port_binding, monkeypatch):
+def test_host_error_fails_one_locus(sim, monkeypatch):
     """A host error (here in the packing of the first locus) counts as one
     failed locus and the run goes on."""
     d, want = sim
@@ -180,12 +167,11 @@ def test_host_error_fails_one_locus(sim, port_binding, monkeypatch):
     assert _body(f"{d}/flaky.vcf") == want[1:]
 
 
-def test_run_sequential_refuses_the_jax_aligner(sim):
-    """JAX is loaded in this session, so the genotyper is bound to the JAX
-    aligner: the sequential run refuses to start."""
-    d, _ = sim
-    bound = sys.modules[GENOTYPER].compute_hap_log_likelihoods
-    assert bound.__module__ == "hipstr_tpu.pipeline.hap_aligner"
-    with pytest.raises(RuntimeError, match="not hipstr_tpu_torch"):
-        sequential.run_sequential(_pipeline(d), f"{d}/regions.bed",
-                                  f"{d}/refused.vcf", CPU)
+def test_genotyper_binds_the_port_aligner():
+    """The port's genotyper imports the port's aligner, whatever else is
+    loaded: JAX and the JAX package's aligner are, in this session."""
+    assert sys.modules.get("jax") is not None
+    assert genotyper.compute_hap_log_likelihoods is \
+        hap_aligner.compute_hap_log_likelihoods
+    assert hap_aligner.compute_hap_log_likelihoods.__module__ == \
+        "hipstr_tpu_torch.pipeline.hap_aligner"

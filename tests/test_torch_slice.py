@@ -19,19 +19,24 @@ import sys
 import pytest
 import torch
 
-from hipstr_tpu.models.stutter import StutterModel
-from hipstr_tpu.pipeline.processor import (GenotyperPipeline, Logger,
-                                           PipelineOptions)
 from hipstr_tpu.utils.simulate import simulate_locus
 from hipstr_tpu_torch import cli, kernels
 from hipstr_tpu_torch.device import resolve, resolve_device
+from hipstr_tpu_torch.models.stutter import StutterModel
 from hipstr_tpu_torch.parallel import executor
+from hipstr_tpu_torch.pipeline.processor import (GenotyperPipeline, Logger,
+                                                 PipelineOptions)
 from hipstr_tpu_torch.utils.simdata import write_sim
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
 # the port's CLI subprocesses run torch on one thread (see one_torch_thread)
 ONE_THREAD = {"OMP_NUM_THREADS": "1"}
+# run in a port subprocess after its work: neither JAX nor any module of
+# the JAX package was loaded
+ASSERT_NO_JAX_PACKAGE = (
+    "assert not [m for m in sys.modules if sys.modules[m] is not None and\n"
+    "            (m.split('.')[0] in ('jax', 'hipstr_tpu'))]\n")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -121,11 +126,7 @@ def test_cli_runs_with_jax_blocked(sim):
     script = ("import sys; sys.modules['jax'] = None\n"
               "from hipstr_tpu_torch.cli import main\n"
               "rc = main(sys.argv[1:])\n"
-              "aligner = sys.modules['hipstr_tpu.pipeline.hap_aligner']\n"
-              "assert aligner.__name__ == "
-              "'hipstr_tpu_torch.pipeline.hap_aligner', aligner.__name__\n"
-              "assert not [m for m in sys.modules if m.startswith('jax')\n"
-              "            and sys.modules[m] is not None]\n"
+              + ASSERT_NO_JAX_PACKAGE +
               "sys.exit(rc)\n")
     args = _cli_args(d, f"{d}/nojax.vcf") + SIM_ARGS + ["--device", "cpu"]
     env = dict(os.environ, PYTHONPATH=ROOT, **ONE_THREAD)
@@ -137,12 +138,18 @@ def test_cli_runs_with_jax_blocked(sim):
 
 
 def test_loaded_jax_keeps_the_jax_aligner():
-    """JAX is loaded in this session (conftest): the port registers
-    nothing, and the JAX package keeps its own aligner."""
-    import hipstr_tpu_torch.host  # noqa: F401
+    """JAX is loaded in this session (conftest): the port writes no
+    sys.modules entry, so the JAX package keeps its own aligner and the
+    port's genotyper its own."""
+    from hipstr_tpu.pipeline import genotyper as jax_genotyper
+    from hipstr_tpu_torch.pipeline import genotyper, hap_aligner
     assert sys.modules.get("jax") is not None
     mod = sys.modules["hipstr_tpu.pipeline.hap_aligner"]
     assert mod.__name__ == "hipstr_tpu.pipeline.hap_aligner"
+    assert jax_genotyper.compute_hap_log_likelihoods is \
+        mod.compute_hap_log_likelihoods
+    assert genotyper.compute_hap_log_likelihoods is \
+        hap_aligner.compute_hap_log_likelihoods
 
 
 def test_device_error_fails_the_run(sim, monkeypatch):
