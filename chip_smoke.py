@@ -8,10 +8,13 @@ Phases (any failure raises and exits non-zero):
      power limit, whether the native host library loaded;
   2. build: the four CUDA kernels (K1 emission, K2 segment, K4 flank scan,
      K3 fused segment) from hipstr_tpu_torch/csrc, one nvcc each, all at
-     once;
+     once; ptxas's registers, stack frame and spills of every kernel
+     instance;
   3. each kernel against its plain PyTorch version on the card, float32
-     and float64, at the main-path shape and a deep shape, with times, and
-     K1 and K2 at L = 384 and 512;
+     and float64, at the main-path shape and a deep shape, with times (K4
+     and K3 by `event_ms`: their one-locus launches are shorter than the
+     wrapper's host time); K1 and K2 at L = 384 and 512; K4 and K3 at
+     every L bucket (64 .. 512);
   4. the batched slice: `hipstr_tpu_torch.cli` in-process on 60 simulated
      30x trio loci (float32, --batch-loci 32); 60/60 genotyped, K1 and K2
      launched at least twice per dispatch, K3 and K4 never, JAX never
@@ -149,18 +152,60 @@ def phase_env():
 
 
 # ---------------------------------------------------------------- phase 2
+def ptxas_report(text: str):
+    """Per kernel instance in nvcc's `-Xptxas -v` output: (instance,
+    registers, stack frame bytes, spill store bytes, spill load bytes).
+    The instance is the mangled name's kernel and template arguments, as
+    `flank_scan_kernel<f,4,0>` (type f/d, lanes a thread, shared lanes)."""
+    import re
+    rows, cur = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"([a-z][a-z_]*_kernel)I(.*?)EEv", m.group(1))
+            args = re.findall(r"L[ib](\d+)E|^([fd])", k.group(2)) if k else []
+            name = (f"{k.group(1)}<" + ",".join(a or b for a, b in args)
+                    + ">") if k else m.group(1)
+            cur = dict(instance=name, registers=None, stack=None,
+                       spill_stores=None, spill_loads=None)
+            rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return rows
+
+
 def phase_build():
     from hipstr_tpu_torch import kernels
     t0 = time.perf_counter()
     kernels.build_all()
     log(f"built {len(kernels.LAUNCHES)} kernels in "
         f"{time.perf_counter() - t0:.2f} s")
+    report = {}
     for name in kernels.LAUNCHES:
         info = kernels.BUILD_INFO[name]
         log(f"built {name}: nvcc {info['seconds']:.2f} s")
-        for line in info["ptxas"].splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas: {line.strip()}")
+        report[name] = ptxas_report(info["ptxas"])
+        for row in report[name]:
+            log(f"  ptxas {row['instance']}: {row['registers']} registers, "
+                f"{row['stack']} bytes stack frame, {row['spill_stores']} / "
+                f"{row['spill_loads']} bytes spill stores / loads")
+    # K4 and K3 carry their state in registers: say whether any instance
+    # spilled or kept a stack frame
+    heavy = [row["instance"] for name in ("flank_scan", "segment_scan")
+             for row in report[name]
+             if row["stack"] or row["spill_stores"] or row["spill_loads"]]
+    log(f"ptxas: K4/K3 instances with a stack frame or spills: "
+        f"{heavy or 'none'}")
+    return report
 
 
 # ---------------------------------------------------------------- phase 3
@@ -316,15 +361,16 @@ def check_segment(shape, dtype_name, device, rng, fw, statics):
     return err, ms, plain_ms, b, R
 
 
-def scan_inputs(P, dtype_name, device, rng, arrays, statics):
-    """K4/K3 inputs with the forward row structure, H, L and repeat options
-    of a real locus and P random reads."""
+def scan_inputs(P, dtype_name, device, rng, arrays, statics, L=None):
+    """K4/K3 inputs with the forward row structure, H and repeat options of
+    a real locus and P random reads of L lanes (the locus's own L by
+    default)."""
     import torch
     from hipstr_tpu_torch.device import resolve_dtype
     from hipstr_tpu_torch.ops.hmm import HapMeta, expand_quals, shift_right
     dt = resolve_dtype(dtype_name)
     R, sr, period = statics[0], statics[2], statics[4]
-    L = arrays[0].codes.shape[1]
+    L = L or arrays[0].codes.shape[1]
     codes, quals, last = (x[0] for x in reads(rng, 1, P, L, device, period))
     blw, blc = expand_quals(quals, dt)
     C = torch.cumsum(blc, dim=-1)
@@ -333,14 +379,14 @@ def scan_inputs(P, dtype_name, device, rng, arrays, statics):
              last.int().contiguous()), meta, R, sr, period)
 
 
-def check_flank_scan(P, dtype_name, device, rng, arrays, statics):
+def check_flank_scan(P, dtype_name, device, rng, arrays, statics, L=None):
     """K4 over the phase-1 rows of a real locus from its row-0 state."""
     from hipstr_tpu_torch.ops.hmm import IMPOSSIBLE, emit_locus
     from hipstr_tpu_torch.ops.hmm_scan import (flank_scan_kernel,
                                                flank_scan_plain)
     import torch
     rd, meta, R, sr, _ = scan_inputs(P, dtype_name, device, rng, arrays,
-                                     statics)
+                                     statics, L)
     codes, blw, blc, C, Csh, _ = rd
     M = emit_locus(codes, meta.row_char[:, 0], blc, blw) + Csh[:, None]
     state = (M, C[:, None].expand(M.shape).contiguous(),
@@ -353,19 +399,21 @@ def check_flank_scan(P, dtype_name, device, rng, arrays, statics):
     torch.cuda.synchronize()
     err = max(compare("flank_scan", g, r, dtype_name)
               for g, r in zip(got, ref))
-    ms = cuda_ms(lambda: flank_scan_kernel(*args), 5)
+    # device time: a loop of wrapper calls would time the host at this size
+    ms = event_ms(lambda: flank_scan_kernel(*args), 5)
     plain_ms = cuda_ms(lambda: flank_scan_plain(*args), 2)
     return err, ms, plain_ms, bound_flank_scan(args, {}, dtype_name)["bound_ms"]
 
 
-def check_segment_scan(P, dtype_name, device, rng, arrays, statics):
+def check_segment_scan(P, dtype_name, device, rng, arrays, statics,
+                       L=None):
     """K3 over the forward orientation of a real locus (E from K1)."""
     import torch
     from hipstr_tpu_torch.ops.emission import stutter_emissions
     from hipstr_tpu_torch.ops.hmm_scan import (segment_scan_kernel,
                                                segment_scan_plain)
     rd, meta, R, sr, period = scan_inputs(P, dtype_name, device, rng,
-                                          arrays, statics)
+                                          arrays, statics, L)
     codes, blw, blc = rd[:3]
     periods = torch.full((1,), period, dtype=torch.int32, device=device)
     E = stutter_emissions(codes[None], blw[None], blc[None],
@@ -376,7 +424,7 @@ def check_segment_scan(P, dtype_name, device, rng, arrays, statics):
     ref = segment_scan_plain(*args)
     torch.cuda.synchronize()
     err = compare("segment_scan", got, ref, dtype_name)
-    ms = cuda_ms(lambda: segment_scan_kernel(*args), 5)
+    ms = event_ms(lambda: segment_scan_kernel(*args), 5)
     plain_ms = cuda_ms(lambda: segment_scan_plain(*args), 2)
     return err, ms, plain_ms, bound_segment_scan(args, {}, dtype_name)[
         "bound_ms"]
@@ -425,6 +473,19 @@ def phase_kernels(device, tmp):
                 f"L={shape['L']}: emission err {e[0]:.3e} kernel "
                 f"{e[1]:.3f} ms | segment err {s[0]:.3e} kernel "
                 f"{s[1]:.3f} ms")
+    # K4 and K3 have one instance per L bucket and type: each against its
+    # plain version on the real locus's rows with reads of L lanes
+    from hipstr_tpu_torch.kernels import WARP_LANES
+    for L_b in WARP_LANES:
+        for dtype_name in ("float32", "float64"):
+            rng = np.random.default_rng(13)
+            f = check_flank_scan(P_real, dtype_name, device, rng, arrays,
+                                 statics, L_b)
+            k3 = check_segment_scan(P_real, dtype_name, device, rng, arrays,
+                                    statics, L_b)
+            log(f"lanes {dtype_name} P={P_real} H={H} L={L_b}: flank_scan "
+                f"err {f[0]:.3e} kernel {f[1]:.3f} ms | segment_scan err "
+                f"{k3[0]:.3e} kernel {k3[1]:.3f} ms")
     return results
 
 
@@ -517,18 +578,14 @@ def phase_sequential(tmp, device_name="cuda"):
 
 
 # ---------------------------------------------------------------- phase 6
-def phase_modes(tmp, device):
-    """Flank mode (K4) against fused mode (K3) on the first-round
-    alignment of every locus of the slice, float64."""
-    import numpy as np
-    import torch
-    from hipstr_tpu_torch import kernels
+def slice_loci(tmp):
+    """(region, aligner inputs) of the first-round alignment of every
+    locus of the slice's dataset: the arguments of
+    compute_hap_log_likelihoods before `dtype`."""
     from hipstr_tpu_torch.io.regions import read_regions
     from hipstr_tpu_torch.models.stutter import StutterModel
     from hipstr_tpu_torch.pipeline.processor import (GenotyperPipeline,
                                                      Logger, PipelineOptions)
-    from hipstr_tpu_torch.pipeline.hap_aligner import \
-        compute_hap_log_likelihoods
     opts = PipelineOptions(
         min_reads=15, use_unpaired=True, dtype="float64",
         def_stutter_model=StutterModel(0.95, 0.05, 0.05, 0.95, 0.01, 0.01, 2))
@@ -539,8 +596,20 @@ def phase_modes(tmp, device):
         g = p.prepare_locus_genotyper(region,
                                       p.fasta.get_sequence(region.chrom))
         if g is None:
-            raise AssertionError(f"modes: no genotyper for {region}")
+            raise AssertionError(f"no genotyper for {region}")
         loci.append((region, (g.align_haplotype(), *g.pool_inputs())))
+    return loci
+
+
+def phase_modes(tmp, device):
+    """Flank mode (K4) against fused mode (K3) on the first-round
+    alignment of every locus of the slice, float64."""
+    import numpy as np
+    import torch
+    from hipstr_tpu_torch import kernels
+    from hipstr_tpu_torch.pipeline.hap_aligner import \
+        compute_hap_log_likelihoods
+    loci = slice_loci(tmp)
     modes = ("flank", "fused")
     for mode in modes:      # warm-up, not counted
         compute_hap_log_likelihoods(*loci[0][1], dtype="float64",
@@ -783,25 +852,28 @@ class Capture:
         setattr(self.module, self.attr, self.orig)
 
 
-def clone(x):
+def tree_map(fn, x):
+    """fn applied to every tensor of x, through tuples, lists and
+    NamedTuples (such as HapMeta); anything else (ints) passes through."""
     import torch
     if isinstance(x, torch.Tensor):
-        return x.clone()
-    if isinstance(x, tuple):
-        parts = [clone(v) for v in x]
-        return type(x)(*parts) if hasattr(x, "_fields") else tuple(parts)
+        return fn(x)
+    if isinstance(x, (tuple, list)):
+        parts = [tree_map(fn, v) for v in x]
+        if hasattr(x, "_fields"):
+            return type(x)(*parts)
+        return type(x)(parts)
     return x
+
+
+def clone(x):
+    return tree_map(lambda t: t.clone(), x)
 
 
 def as_dtype(x, dt):
     """x with every floating tensor converted to dt."""
-    import torch
-    if isinstance(x, torch.Tensor):
-        return x.to(dt).contiguous() if x.is_floating_point() else x
-    if isinstance(x, tuple):
-        parts = [as_dtype(v, dt) for v in x]
-        return type(x)(*parts) if hasattr(x, "_fields") else tuple(parts)
-    return x
+    return tree_map(lambda t: t.to(dt).contiguous() if t.is_floating_point()
+                    else t, x)
 
 
 def event_ms(fn, reps: int, flush=None) -> float:
@@ -956,7 +1028,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     card = phase_env()
     check_no_jax()
-    phase_build()
+    ptxas = phase_build()
     check_no_jax()
     from hipstr_tpu_torch.device import resolve_device
     from hipstr_tpu_torch.utils.simdata import trio_loci, write_sim
@@ -982,7 +1054,9 @@ def main() -> int:
                                  seq_shapes, loci)
         check_no_jax()
     log(json.dumps({"slice": slice_stats, "sequential": seq_stats,
-                    "modes": mode_stats, "card": card}))
+                    "modes": mode_stats, "card": card,
+                    "ptxas": {k: ptxas[k] for k in ("flank_scan",
+                                                    "segment_scan")}}))
     launches.update(flank_scan=seq_launches["flank_scan"],
                     segment_scan=mode_launches["segment_scan"])
     main32 = kres[("main", "float32")]

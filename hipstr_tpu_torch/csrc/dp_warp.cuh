@@ -1,15 +1,17 @@
-// Warp-per-chain helpers of the forward DP (segment.cu, K2).
+// Warp-per-chain rows of the forward DP (segment.cu, K2; flank_scan.cu, K4;
+// segment_scan.cu, K3).
 //
-// One warp runs one (locus, haplotype, read pool) chain: thread t holds the
-// V = L/32 consecutive read lanes j = t*V .. t*V+V-1 of the row state M and
-// D in registers.  A flank row needs no shared memory and no barrier: the
+// One warp runs one chain (a read pool against a haplotype): thread t holds
+// the V = L/32 consecutive read lanes j = t*V .. t*V+V-1 of the row state
+// in registers.  A flank row needs no shared memory and no barrier: the
 // one-lane shifts are register moves plus one __shfl_up_sync for the
 // thread's first lane, and the in-row insert recurrence (an inclusive
 // max-scan over the lanes) is a serial scan over the thread's own lanes
-// followed by a 5-step shuffle scan of the thread totals.  Max is exact, so
-// the bits are those of the block-per-chain rows of dp_rows.cuh.  The
-// stutter row gathers M_prev[(j - s) mod L] through a per-warp row in
-// shared memory behind one __syncwarp().  IEEE exp/log: no fast math.
+// followed by a 5-step shuffle scan of the thread totals.  Max is exact, and
+// the terms are those of the plain rows (ops/hmm.py) in the same order, so
+// float64 results are bit-identical to theirs.  The stutter row gathers
+// M_prev[(j - s) mod L] through a per-warp row in shared memory behind one
+// __syncwarp().  IEEE exp/log: no fast math.
 
 #pragma once
 
@@ -227,48 +229,48 @@ __device__ __forceinline__ T from_left(T x_last, int t) {
 }
 
 // One flank row (reference HapAligner.cpp:110-156) over the thread's V lanes.
-// m and d hold the previous row's M and D and become the new row's; ch is
-// the row's haplotype character, m2m/m2i/m2d its transitions; jk[v] is
-// j * ins2ins of the thread's lane v.  Same terms in the same order as
-// dp::flank_row, so the same bits.
+// m and d hold the previous row's M and D and become the new row's; i
+// becomes the new row's I (the previous I is never read: the insert
+// recurrence rebuilds it from M).  ch is the row's haplotype character,
+// m2m/m2i/m2d its transitions; jk[v] is j * ins2ins of the thread's lane v.
+// Same terms in the same order as ops/hmm.py's flank_row, so the same bits.
 template <typename T, int V, class LanesT>
-__device__ __forceinline__ void flank_row(T (&m)[V], T (&d)[V],
+__device__ __forceinline__ void flank_row(T (&m)[V], T (&d)[V], T (&i)[V],
                                           const LanesT& ln, const T (&jk)[V],
                                           int ch, T m2m, T m2i, T m2d) {
   const int t = threadIdx.x & 31;
   const T m_in = from_left(m[V - 1], t);
   const T d_in = from_left(d[V - 1], t);
-  // f = a - Csh - j*ins2ins, then its inclusive max-scan over the lanes;
+  // i = a - Csh - j*ins2ins, then its inclusive max-scan over the lanes;
   // only lane 0 (thread 0, v = 0) has no left neighbour
-  T f[V];
 #pragma unroll
   for (int v = 0; v < V; ++v) {
     const T a = v ? m[v - 1] + T(kInsToMatch)
                   : (t ? m_in + T(kInsToMatch) : T(0));
-    f[v] = a - ln.Csh(v) - jk[v];
+    i[v] = a - ln.Csh(v) - jk[v];
   }
 #pragma unroll
-  for (int v = 1; v < V; ++v) f[v] = xmax(f[v], f[v - 1]);
-  T incl = f[V - 1];
+  for (int v = 1; v < V; ++v) i[v] = xmax(i[v], i[v - 1]);
+  T incl = i[V - 1];
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
     const T y = __shfl_up_sync(kFull, incl, off);
     if (t >= off) incl = xmax(incl, y);
   }
   const T before = __shfl_up_sync(kFull, incl, 1);  // max over lanes < j0
-  // I of the new row (f becomes i_new)
+  // I of the new row
 #pragma unroll
   for (int v = 0; v < V; ++v) {
-    const T cm = t ? xmax(f[v], before) : f[v];
-    f[v] = ln.C(v) + jk[v] + cm;
+    const T cm = t ? xmax(i[v], before) : i[v];
+    i[v] = ln.C(v) + jk[v] + cm;
   }
-  const T i_in = from_left(f[V - 1], t);
+  const T i_in = from_left(i[V - 1], t);
   // new M and D, last lane first so lane v-1 still holds the old row
 #pragma unroll
   for (int v = V - 1; v >= 0; --v) {
     const T mprev = v ? m[v - 1] : m_in;
     const T dprev = v ? d[v - 1] : d_in;
-    const T iprev = v ? f[v - 1] : i_in;
+    const T iprev = v ? i[v - 1] : i_in;
     const T best = xmax(iprev + m2i, xmax(mprev + m2m, dprev + m2d));
     const T tr = (v || t) ? best : T(0);
     const T d_new = xmax(m[v] + T(kDelToMatch), d[v] + T(kDelToDel));
@@ -276,6 +278,15 @@ __device__ __forceinline__ void flank_row(T (&m)[V], T (&d)[V],
     m[v] = em + tr;
     d[v] = d_new;
   }
+}
+
+// The same row for a caller that keeps no I (K2): I lives in the row only.
+template <typename T, int V, class LanesT>
+__device__ __forceinline__ void flank_row(T (&m)[V], T (&d)[V],
+                                          const LanesT& ln, const T (&jk)[V],
+                                          int ch, T m2m, T m2i, T m2d) {
+  T i[V];
+  flank_row<T, V, LanesT>(m, d, i, ln, jk, ch, m2m, m2i, m2d);
 }
 
 // The row right after the repeat block, entered by a match only
@@ -295,9 +306,10 @@ __device__ __forceinline__ void forced_match_row(T (&m)[V], const LanesT& ln,
 
 // The collapsed repeat-block row (reference HapAligner.cpp:62-108): an
 // online log-sum-exp over the 13 artifact sizes, the terms in the order and
-// form of dp::stutter_row.  Artifact dd enters from M_prev[(j - s_d) mod L]
-// with s_d = shift + dd * period (shift may be negative), and from 0.0 (not
-// NEG) where j < s_d; every term is clamped at IMPOSSIBLE.  sM is the
+// form of ops/hmm.py's stutter_row.  Artifact dd enters from
+// M_prev[(j - s_d) mod L] with s_d = shift + dd * period (shift may be
+// negative), and from 0.0 (not NEG) where j < s_d; every term is clamped at
+// IMPOSSIBLE.  sM is the
 // warp's row of L values; sE the warp's copy of the 13 emission planes
 // [13][L] of the haplotype's repeat option; lp (shared) the 13 log artifact
 // probabilities.  Once per chain, so the artifact loop stays rolled.

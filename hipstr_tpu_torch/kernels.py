@@ -38,8 +38,15 @@ BUILD_DIR = (Path(__file__).resolve().parent.parent / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# one thread per read lane: kMaxLanes, the __launch_bounds__ of csrc/*.cu
+# The read lanes L each kernel takes.  K1 (csrc/emission.cu) runs one or two
+# threads per lane in one block: any whole number of warps up to MAX_LANES
+# (its kMaxLanes).  K2, K3 and K4 (csrc/segment.cu, segment_scan.cu,
+# flank_scan.cu) run one warp per chain with V = L/32 lanes a thread and have
+# an instance for each L bucket of prepare_locus only: WARP_LANES, which
+# their launch geometries (ops/hmm2.segment_geometry,
+# ops/hmm_scan.scan_geometry) hold every launch to.
 MAX_LANES = 512
+WARP_LANES = (64, 128, 192, 256, 384, 512)
 
 LAUNCHES: Dict[str, int] = {"emission": 0, "segment": 0, "flank_scan": 0,
                             "segment_scan": 0}
@@ -54,8 +61,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "emission": [_P] * 7 + [_I] * 5 + [_P],
     "segment": [_P] * 16 + [_I] * 10 + [_P],
-    "flank_scan": [_P] * 18 + [_I] * 4 + [_P],
-    "segment_scan": [_P] * 16 + [_I] * 7 + [_P],
+    "flank_scan": [_P] * 18 + [_I] * 8 + [_P],
+    "segment_scan": [_P] * 16 + [_I] * 9 + [_P],
 }
 
 
@@ -157,8 +164,9 @@ def stream() -> ctypes.c_void_p:
 
 
 def check_lanes(name: str, dtype: torch.dtype, L: int) -> None:
-    """Raise unless the kernels take `dtype` and L lanes (one thread each,
-    whole warps)."""
+    """Raise unless K1 takes `dtype` and L lanes: whole warps, at most
+    MAX_LANES.  (The warp-per-chain kernels take WARP_LANES only, and their
+    geometries check it.)"""
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"{name}: dtype {dtype}")
     if L % 32 or L > MAX_LANES:
@@ -167,8 +175,10 @@ def check_lanes(name: str, dtype: torch.dtype, L: int) -> None:
 
 
 def check_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
-                      shape: tuple, device: torch.device) -> None:
-    """Validate one kernel argument: device, dtype, shape, contiguity."""
+                      shape: tuple, device: torch.device,
+                      contiguous: bool = True) -> None:
+    """Validate one kernel argument: device, dtype, shape and, unless the
+    kernel takes its strides, contiguity."""
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -176,5 +186,13 @@ def check_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+
+
+def check_aligned(name: str, t: torch.Tensor) -> None:
+    """Raise unless `t` starts on a 16-byte boundary: the warp kernels move
+    a thread's lanes in 8- and 16-byte pieces, and a misaligned vector
+    access is a fault that ends the CUDA context."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: data pointer not 16-byte aligned")

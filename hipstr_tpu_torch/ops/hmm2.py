@@ -26,7 +26,6 @@ from .hmm import (IMPOSSIBLE, NEG, SeedMeta, emit, expand_quals, flank_row,
 
 
 # ---- K2 launch geometry (csrc/segment.cu) ----------------------------------
-SEGMENT_LANES = (64, 128, 192, 256, 384, 512)  # L: V = L/32 lanes a thread
 SEGMENT_WARPS = (8, 4, 2, 1)                   # warps a block, preferred first
 SMEM_BLOCK = 232448      # shared memory a block may use on the H100 (227 KB)
 SMEM_SM = 233472         # shared memory of one SM (228 KB)
@@ -34,9 +33,12 @@ SMEM_RESERVED = 1024     # the runtime's reservation per block
 ND = 13                  # artifact sizes (E's third axis)
 
 
-class SegmentGeometry(NamedTuple):
-    grid: Tuple[int, int, int]   # (ceil(P / warps), H, G)
-    warps: int                   # W: one warp per (g, h, p) chain
+class WarpGeometry(NamedTuple):
+    """The launch of a warp-per-chain kernel (K2 here; K4 and K3 in
+    ops/hmm_scan.py).  grid is (ceil(P / W), H, G) for K2 and
+    (ceil(H / W), P) for K4 and K3."""
+    grid: Tuple[int, ...]
+    warps: int                   # W: one warp per chain
     threads: int                 # 32 * W
     smem: int                    # dynamic shared memory, bytes
     lanes_per_thread: int        # V = L / 32
@@ -55,37 +57,50 @@ def segment_smem(W: int, L: int, R: int, itemsize: int,
         + (R * W + 3 * R + ND) * itemsize + R * 4
 
 
-def segment_geometry(G: int, H: int, P: int, L: int, R: int,
-                     dtype) -> SegmentGeometry:
-    """The K2 launch for one orientation: grid, warps a block (the W of
-    SEGMENT_WARPS, no more than P, that keeps the most warps resident on an
-    SM; ties to the larger), shared memory.  Raises on what the kernel does
-    not take."""
+def pick_warps(what: str, limit: int, smem) -> int:
+    """Warps a block for a warp-per-chain kernel: the W of SEGMENT_WARPS,
+    no more than `limit` (the chains one block can take), whose blocks of
+    smem(W) bytes keep the most warps resident on an SM; ties go to the
+    larger.  Raises when not even one warp fits in SMEM_BLOCK."""
+    def resident(W):
+        return W * min(32, 64 // W, SMEM_SM // (smem(W) + SMEM_RESERVED))
+
+    fits = [W for W in SEGMENT_WARPS if W <= limit and smem(W) <= SMEM_BLOCK]
+    if not fits:
+        raise ValueError(f"{what} needs {smem(1)} bytes of shared memory "
+                         "per warp")
+    return max(fits, key=lambda w: (resident(w), w))
+
+
+def check_warp_lanes(name: str, dtype, L: int) -> int:
+    """The item size of `dtype`; raises unless a warp-per-chain kernel
+    (K2, K3, K4) has an instance for `dtype` and L (kernels.WARP_LANES)."""
     if dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"segment_forward: dtype {dtype}")
-    if L not in SEGMENT_LANES:
-        raise ValueError(f"segment_forward: L={L} not in {SEGMENT_LANES}")
+        raise ValueError(f"{name}: dtype {dtype}")
+    if L not in kernels.WARP_LANES:
+        raise ValueError(f"{name}: L={L} not in {kernels.WARP_LANES}")
+    return 8 if dtype == torch.float64 else 4
+
+
+def segment_geometry(G: int, H: int, P: int, L: int, R: int,
+                     dtype) -> WarpGeometry:
+    """The K2 launch for one orientation: grid, warps a block (`pick_warps`,
+    no more than P), shared memory.  Raises on what the kernel does not
+    take."""
+    itemsize = check_warp_lanes("segment_forward", dtype, L)
     if min(G, H, P) < 1 or R < 2:
         raise ValueError(f"segment_forward: G={G} H={H} P={P} R={R}")
-    itemsize = 8 if dtype == torch.float64 else 4
     shared = itemsize == 8 and L > 256
 
     def smem(W):
         return segment_smem(W, L, R, itemsize, shared)
 
-    def resident(W):
-        return W * min(32, 64 // W, SMEM_SM // (smem(W) + SMEM_RESERVED))
-
-    fits = [W for W in SEGMENT_WARPS if W <= P and smem(W) <= SMEM_BLOCK]
-    if not fits:
-        raise ValueError(f"segment_forward: R={R} L={L} needs "
-                         f"{smem(1)} bytes of shared memory per warp")
-    W = max(fits, key=lambda w: (resident(w), w))
-    return SegmentGeometry(((P + W - 1) // W, H, G), W, 32 * W, smem(W),
-                           L // 32, shared)
+    W = pick_warps(f"segment_forward: R={R} L={L}", P, smem)
+    return WarpGeometry(((P + W - 1) // W, H, G), W, 32 * W, smem(W),
+                        L // 32, shared)
 
 
-def segment_chain(geom: SegmentGeometry, block: Tuple[int, int, int],
+def segment_chain(geom: WarpGeometry, block: Tuple[int, int, int],
                   warp: int, P: int) -> Optional[Tuple[int, int, int]]:
     """The (g, h, p) chain that `warp` of `block` (x, y, z) runs in the
     kernel, or None for a warp past the last pool."""

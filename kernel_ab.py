@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's K1 (emission) and K2 (segment) CUDA kernels of this tree
-against those of another checkout of the repository, on one card.
+"""Time the port's four CUDA kernels of this tree against those of another
+checkout of the repository, on one card.
 
     mkdir -p build/ab_parent
     git archive <commit> | tar -x -C build/ab_parent
@@ -10,19 +10,23 @@ Each side runs in a fresh process from its own root, in the order other,
 this, this, other, so a drift of the card's clocks shows as a difference
 between the two runs of one side.  A side builds its own kernels, runs its
 own `chip_smoke.phase_kernels` (every kernel against its plain version at
-the synthetic main and deep shapes, with times), and then times its K1 and
-K2 wrappers on the arguments that this tree's batched run (the slice of
-chip_smoke phase 4) passed at each kernel's two most frequent launch
-shapes, captured once by this tree, in float32 and float64: checked
-against the side's plain version, then timed by this tree's
-`chip_smoke.event_ms` (CUDA events over 20 launches after a warm-up, L2
-warm and L2 flushed).  The wrappers' signatures are the same on both
-sides.  Prints the card's name and power limit, then one line `AB {json}`
-per side run.  Needs one CUDA card.
+the synthetic shapes, with times), and then times its four kernel
+wrappers on arguments that this tree captured once, at each kernel's two
+most frequent launch shapes on its path: K1 and K2 from the batched run
+(the slice of chip_smoke phase 4), K4 from the sequential run
+(`--batch-loci 0`, phase 5), K3 from the fused per-locus mode over the
+slice's loci (phase 6).  In float32 and float64, each is checked against
+the side's plain version, then timed by this tree's `chip_smoke.event_ms`
+(CUDA events over 20 launches after a warm-up, L2 warm and L2 flushed),
+beside this tree's bound for the work (`chip_smoke.bound_*`).  The
+wrappers' signatures are the same on both sides.  Prints the card's name
+and power limit, then one line `AB {json}` per side run.  Needs one CUDA
+card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import importlib.util
 import json
 import os
@@ -45,31 +49,55 @@ def this_smoke():
 
 
 def capture(data: str, saved: str) -> None:
-    """Run this tree's batched slice on `data` once and save, for K1 and
-    K2, the arguments of the first launch at each of the two most frequent
-    shapes (CPU copies), with the shape and its launch count."""
+    """Run this tree's paths on `data` once (the batched and the sequential
+    run, the fused mode over the slice's loci) and save, for each kernel,
+    the arguments of the first launch at each of its two most frequent
+    shapes (CPU copies, HapMeta and int arguments kept), with the shape and
+    its launch count."""
     import torch
     sys.path.insert(0, HERE)
     import chip_smoke as c
     from hipstr_tpu_torch import cli, kernels
-    from hipstr_tpu_torch.ops import hmm2
-    args = ["--bams", f"{data}/sim.bam", "--fasta", f"{data}/sim.fa",
+    from hipstr_tpu_torch.ops import hmm2, hmm_scan
+    from hipstr_tpu_torch.pipeline.hap_aligner import \
+        compute_hap_log_likelihoods
+    base = ["--bams", f"{data}/sim.bam", "--fasta", f"{data}/sim.fa",
             "--regions", f"{data}/regions.bed", "--min-reads", "15",
-            "--use-unpaired", "--def-stutter-model", "--batch-loci", "32",
-            "--dtype", "float32", "--device", "cuda", "--silent",
-            "--str-vcf", f"{data}/ab.vcf"]
-    kernels.reset_launches()
-    k1 = c.Capture(hmm2, "stutter_emissions", c.shape_emission)
-    k2 = c.Capture(hmm2, "segment_kernel", c.shape_segment)
-    with k1, k2:
-        cli.run(args)
+            "--use-unpaired", "--def-stutter-model", "--dtype", "float32",
+            "--device", "cuda", "--silent"]
+    caps, hists = {}, {}
+
+    def path(names, run):
+        kernels.reset_launches()
+        with contextlib.ExitStack() as stack:
+            for name, (module, attr, shape_of) in names.items():
+                caps[name] = stack.enter_context(
+                    c.Capture(module, attr, shape_of))
+            run()
+        for name in names:
+            hists[name] = kernels.SHAPES[name].copy()
+
+    path({"emission": (hmm2, "stutter_emissions", c.shape_emission),
+          "segment": (hmm2, "segment_kernel", c.shape_segment)},
+         lambda: cli.run(base + ["--batch-loci", "32", "--str-vcf",
+                                 f"{data}/ab.vcf"]))
+    path({"flank_scan": (hmm_scan, "flank_scan_kernel",
+                         c.shape_flank_scan)},
+         lambda: cli.run(base + ["--batch-loci", "0", "--str-vcf",
+                                 f"{data}/ab0.vcf"]))
+    loci = c.slice_loci(data)
+    path({"segment_scan": (hmm_scan, "segment_scan_kernel",
+                           c.shape_segment_scan)},
+         lambda: [compute_hap_log_likelihoods(
+             *locus, dtype="float32", device=torch.device("cuda"),
+             mode="fused") for _, locus in loci])
     out = {}
-    for name, cap in (("emission", k1), ("segment", k2)):
-        hist = kernels.SHAPES[name]
+    for name, cap in caps.items():
         out[name] = []
-        for shape, count in hist.most_common(TOP_SHAPES):
+        for shape, count in hists[name].most_common(TOP_SHAPES):
             a, kw = cap.args[shape]
-            out[name].append((shape, count, [x.cpu() for x in a], kw))
+            out[name].append((shape, count,
+                              c.tree_map(lambda t: t.cpu(), a), kw))
     torch.save(out, saved)
 
 
@@ -81,7 +109,7 @@ def side(root: str, data: str, saved: str) -> dict:
     os.chdir(root)
     import torch
     import chip_smoke as c
-    from hipstr_tpu_torch.ops import hmm2
+    from hipstr_tpu_torch.ops import hmm2, hmm_scan
     from hipstr_tpu_torch.ops.emission import stutter_emissions
     from hipstr_tpu_torch.ops.stutter_emission import stutter_emissions_plain
     c.phase_build()
@@ -89,26 +117,39 @@ def side(root: str, data: str, saved: str) -> dict:
     kres = c.phase_kernels(device, data)
     synthetic = {f"{label} {dt}": {k: list(v) for k, v in r.items()}
                  for (label, dt), r in kres.items()}
-    fns = {"emission": (stutter_emissions, stutter_emissions_plain),
-           "segment": (hmm2.segment_kernel, hmm2.segment_forward_plain)}
+    fns = {"emission": (stutter_emissions, stutter_emissions_plain,
+                        timing.bound_emission),
+           "segment": (hmm2.segment_kernel, hmm2.segment_forward_plain,
+                       timing.bound_segment),
+           "flank_scan": (hmm_scan.flank_scan_kernel,
+                          hmm_scan.flank_scan_plain,
+                          timing.bound_flank_scan),
+           "segment_scan": (hmm_scan.segment_scan_kernel,
+                            hmm_scan.segment_scan_plain,
+                            timing.bound_segment_scan)}
     flush = torch.empty(timing.FLUSH_BYTES, dtype=torch.uint8, device=device)
     real = []
-    for name, rows in torch.load(saved).items():
-        kernel, plain = fns[name]
+    # the file holds HapMeta tuples (K3), written by this tree's capture
+    for name, rows in torch.load(saved, weights_only=False).items():
+        kernel, plain, bound = fns[name]
         for shape, count, args, kw in rows:
             for dt in (torch.float32, torch.float64):
                 dname = str(dt).split(".")[-1]
-                a = [x.to(device).to(dt) if x.is_floating_point()
-                     else x.to(device) for x in args]
-                err = c.compare(name, kernel(*a, **kw), plain(*a, **kw),
-                                dname)
+                a = timing.as_dtype(timing.tree_map(
+                    lambda x: x.to(device), args), dt)
+                got, ref = kernel(*a, **kw), plain(*a, **kw)
+                if not isinstance(got, tuple):
+                    got, ref = (got,), (ref,)
+                err = max(c.compare(name, g, r, dname)
+                          for g, r in zip(got, ref))
                 real.append(dict(
                     kernel=name, shape=list(shape), launches=count,
                     dtype=dname, max_abs_err=err,
                     ms_warm=timing.event_ms(lambda: kernel(*a, **kw),
                                             timing.REAL_REPS),
                     ms=timing.event_ms(lambda: kernel(*a, **kw),
-                                       timing.REAL_REPS, flush)))
+                                       timing.REAL_REPS, flush),
+                    bound_ms=bound(a, kw, dname)["bound_ms"]))
     return dict(root=root, synthetic=synthetic, real=real)
 
 
