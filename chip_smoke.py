@@ -24,7 +24,22 @@ Phases (any failure raises and exits non-zero):
   6. the two per-locus modes on the 60 real loci: the first-round
      alignment of each in float64, flank mode (K4) against fused mode
      (K3), LL within 1e-8;
-  7. the sequential run without a stutter model (host EM) on 8 loci;
+  7. the stutter EM: the sequential run without a stutter model (host EM)
+     on 8 loci; then (a) the batched slice of phase 4 without a stutter
+     model, in-process: the models learned on the card (the device EM),
+     60/60 loci settled (success + em_fail), K1 and K2 launched at least
+     twice per dispatch, K3 and K4 never, and a second run under
+     torch.profiler for the device-idle share; (b) the same run with the
+     host worker pool (--host-workers 3): the same records, genotype and
+     integer fields equal and floats within the drift bands, every worker
+     with CUDA uninitialised and no JAX loaded; (c) on the slice's EM
+     problems, the card's em_train_batch in float64 against the host EM on
+     the CPU (equal converged flags and iterations, parameters within
+     rtol 1e-8, atol 1e-10), float32's largest parameter difference, EM
+     seconds per wave, and torch ops and kernel launches per iteration;
+     (d) the float64 EM anchor: the reference dataset without a stutter
+     model, in-process and pooled, against
+     tests/data/torch_port_ref_em_f64.vcf;
   8. float64 cross-check: the port's VCF on the dataset behind
      tests/data/torch_port_ref_f64.vcf, batched and sequential, against
      that file;
@@ -36,7 +51,9 @@ Phases (any failure raises and exits non-zero):
      L2 flushed (64 MiB written before each launch), and the bound the
      card allows for that work (`bound`).
 
-After every phase no module of JAX or of the JAX package may be loaded.
+The in-process runs of phases 4, 7(a), 8 and 9 pass --host-workers 1, so
+their numbers stay comparable whatever the machine's core count.  After
+every phase no module of JAX or of the JAX package may be loaded.
 Prints the kernel summary as one JSON line (per kernel its real-shape
 time, bound and share of the bound), then as the last line {"ok": true,
 "device": {...}}.  Needs one visible CUDA card.
@@ -44,6 +61,7 @@ time, bound and share of the bound), then as the last line {"ok": true,
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -53,6 +71,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 REF_VCF = os.path.join(ROOT, "tests", "data", "torch_port_ref_f64.vcf")
+REF_EM_VCF = os.path.join(ROOT, "tests", "data", "torch_port_ref_em_f64.vcf")
 SLICE_LOCI = 60
 SLICE_READS = 170
 # (rtol, atol) of kernel vs plain version.  float64: the kernels replay the
@@ -80,6 +99,10 @@ WIDE = (dict(MAIN, G=8, P=16, L=384), dict(MAIN, G=8, P=16, L=512))
 SCAN_DEEP_P = 1024   # K3/K4 deep shape: the largest pool bucket
 MODES_TOL = 1e-8     # flank vs fused LL, float64 (rtol and atol)
 EM_LOCI = 8
+EM_POOL_WORKERS = 3
+EM_BATCH = 32        # the slice's --batch-loci: the EM's wave size
+EM_TOL = (1e-8, 1e-10)   # card f64 EM vs host EM (tests/test_em_batched.py)
+POOL_WATCHDOG_S = 300    # a pooled run of the slice takes well under this
 # kernel -> (source, the TPU kernel it replaces); each is checked in phase 3
 # and timed at its path's real launch shapes, beside its bound, in phase 9
 SOURCES = {
@@ -496,7 +519,8 @@ def phase_slice(tmp, device_name="cuda"):
     args = ["--bams", f"{tmp}/sim.bam", "--fasta", f"{tmp}/sim.fa",
             "--regions", f"{tmp}/regions.bed", "--min-reads", "15",
             "--use-unpaired", "--def-stutter-model", "--batch-loci", "32",
-            "--dtype", "float32", "--device", device_name, "--silent"]
+            "--host-workers", "1", "--dtype", "float32", "--device",
+            device_name, "--silent"]
     # warm the CUDA context and allocator on a few loci (not counted)
     cli.run(args + ["--str-vcf", f"{tmp}/warm.vcf", "--max-regions", "4"])
     torch.cuda.synchronize()
@@ -649,7 +673,7 @@ def phase_modes(tmp, device):
 
 
 # ---------------------------------------------------------------- phase 7
-def phase_em(tmp, device_name="cuda"):
+def phase_em_sequential(tmp, device_name="cuda"):
     """The sequential run without a stutter model: the host EM."""
     from hipstr_tpu_torch import cli
     pipeline, counters = cli.run(
@@ -668,37 +692,394 @@ def phase_em(tmp, device_name="cuda"):
     check_no_jax()
 
 
+def em_args(tmp, out, workers):
+    """The slice's batched run (phase 4) without a stutter model."""
+    return ["--bams", f"{tmp}/sim.bam", "--fasta", f"{tmp}/sim.fa",
+            "--regions", f"{tmp}/regions.bed", "--min-reads", "15",
+            "--use-unpaired", "--batch-loci", str(EM_BATCH),
+            "--host-workers", str(workers), "--dtype", "float32",
+            "--device", "cuda", "--silent", "--str-vcf", out]
+
+
+def device_events(prof):
+    """(device busy s, kernel launches) of a torch.profiler run: the union
+    of the card's event intervals, and its events other than copies and
+    fills."""
+    from torch.autograd import DeviceType
+    ev = sorted(((e.time_range.start, e.time_range.end, e.name)
+                 for e in prof.events() if e.device_type == DeviceType.CUDA),
+                key=lambda x: x[0])
+    busy, cur_start, cur_end = 0.0, None, None
+    for start, stop, _ in ev:
+        if cur_end is None or start > cur_end:
+            if cur_end is not None:
+                busy += cur_end - cur_start
+            cur_start, cur_end = start, stop
+        else:
+            cur_end = max(cur_end, stop)
+    if cur_end is not None:
+        busy += cur_end - cur_start
+    kernels = sum(1 for *_, name in ev
+                  if not name.startswith(("Memcpy", "Memset")))
+    return busy * 1e-6, kernels
+
+
+@contextlib.contextmanager
+def watchdog(seconds: int):
+    """Print every thread's stack and exit non-zero if the block runs past
+    `seconds`: a hung run ends with its stacks, not at the call's limit."""
+    import faulthandler
+    faulthandler.dump_traceback_later(seconds, exit=True)
+    try:
+        yield
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+
+
+def em_slice_run(tmp, out, workers):
+    """One EM run of the slice: (pipeline, counters, wall s, launches)."""
+    import torch
+    from hipstr_tpu_torch import cli, kernels
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with watchdog(POOL_WATCHDOG_S):
+        pipeline, counters = cli.run(em_args(tmp, out, workers))
+    torch.cuda.synchronize()
+    return pipeline, counters, time.perf_counter() - t0, dict(
+        kernels.LAUNCHES)
+
+
+def em_run_stats(label, pipeline, counters, wall, launches):
+    """Check and log one EM run of the slice; returns its numbers."""
+    rs = pipeline.last_run_stats
+    t = pipeline.timer.totals
+    device_wait = t.get("Device fetch", 0.0)
+    em_s = t.get("Stutter estimation (device)", 0.0)
+    log(f"EM {label}: success={counters.genotype_success} "
+        f"em_fail={counters.em_fail} fail={counters.genotype_fail} "
+        f"dispatches={rs['dispatches']} launches={launches}")
+    log(f"EM {label}: {SLICE_LOCI / wall:.3f} loci/s, wall {wall:.3f} s, "
+        f"host {wall - device_wait:.3f} s, device wait {device_wait:.3f} s, "
+        f"Stutter estimation (device) {em_s:.3f} s in {rs['em_waves']} "
+        f"waves, iterations {rs['em_iter_hist']}")
+    # a pooled run's wall less its workers' start (spawn to first reply)
+    start = t.get("Worker start", 0.0)
+    if start:
+        log(f"EM {label}: workers' start {start:.3f} s; after it "
+            f"{SLICE_LOCI / (wall - start):.3f} loci/s over "
+            f"{wall - start:.3f} s")
+    log(pipeline.timer.summary())
+    if counters.genotype_success + counters.em_fail != SLICE_LOCI \
+            or counters.genotype_fail:
+        raise AssertionError(f"EM {label}: not every locus settled")
+    if not rs["em_waves"]:
+        raise AssertionError(f"EM {label}: no device EM wave")
+    for name in ("emission", "segment"):
+        if launches[name] < 2 * rs["dispatches"]:
+            raise AssertionError(f"EM {label}: kernel {name}: "
+                                 f"{launches[name]} launches for "
+                                 f"{rs['dispatches']} dispatches")
+    for name in ("flank_scan", "segment_scan"):
+        if launches[name]:
+            raise AssertionError(f"EM {label}: kernel {name} launched on "
+                                 "the batched path")
+    check_no_jax()
+    return dict(loci_per_s=SLICE_LOCI / wall, wall_s=wall,
+                host_s=wall - device_wait, device_wait_s=device_wait,
+                em_device_s=em_s, em_waves=rs["em_waves"],
+                em_iter_hist=rs["em_iter_hist"], worker_start_s=start,
+                success=counters.genotype_success, em_fail=counters.em_fail)
+
+
+def phase_em(tmp):
+    """(a) the slice without a stutter model, in-process, and its device
+    idle share; (b) the same run pooled."""
+    import torch
+    from hipstr_tpu_torch import cli
+    from torch.profiler import ProfilerActivity, profile
+    # warm the device EM's ops on a few loci (not counted)
+    cli.run(em_args(tmp, f"{tmp}/em_warm.vcf", 1) + ["--max-regions", "4"])
+    a = em_run_stats("in-process", *em_slice_run(tmp, f"{tmp}/em_a.vcf", 1))
+    # the device-idle share of the same run, traced (the tracing slows
+    # the host, so its wall is its own)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        cli.run(em_args(tmp, f"{tmp}/em_prof.vcf", 1))
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    busy, n_kernels = device_events(prof)
+    a.update(profiled_wall_s=wall, device_busy_s=busy,
+             device_idle_share=(1 - busy / wall) if busy else None,
+             profiled_kernels=n_kernels)
+    log(f"EM in-process, traced: wall {wall:.3f} s, device busy "
+        f"{busy:.4f} s ({n_kernels} kernels): idle share "
+        + (f"{100 * (1 - busy / wall):.2f} %" if busy else
+           "not measured (the profiler saw no device time)"))
+    check_no_jax()
+
+    n_cores = len(os.sched_getaffinity(0))
+    log(f"EM pooled: --host-workers -1 resolves to "
+        f"{cli.resolve_host_workers(-1, torch.device('cuda'), n_cores)} "
+        f"on this machine's {n_cores} cores")
+    run_b = em_slice_run(tmp, f"{tmp}/em_b.vcf", EM_POOL_WORKERS)
+    b = em_run_stats(f"pooled ({EM_POOL_WORKERS} workers)", *run_b)
+    # run_pooled raises unless every worker kept CUDA uninitialised and
+    # loaded no JAX: their reports
+    reports = run_b[0].last_run_stats["workers"]
+    log(f"EM pooled: worker reports {reports}")
+    if len(reports) != EM_POOL_WORKERS or any(
+            r["cuda_initialized"] or r["jax_loaded"] for r in reports):
+        raise AssertionError("EM pooled: a worker touched CUDA or JAX")
+    got, want = vcf_body(f"{tmp}/em_b.vcf"), vcf_body(f"{tmp}/em_a.vcf")
+    if len(got) != len(want):
+        raise AssertionError(f"EM pooled: {len(got)} records, in-process "
+                             f"{len(want)}")
+    same = sum(x == y for x, y in zip(got, want))
+    for x, y in zip(got, want):
+        if x != y and not within_drift_bands(x, y):
+            raise AssertionError(f"EM pooled vs in-process outside the drift "
+                                 f"bands:\n  pooled {x.strip()}\n  in-process "
+                                 f"{y.strip()}")
+    log(f"EM pooled vs in-process: {len(got)} records, {same} "
+        f"byte-identical, the rest within the drift bands; bodies "
+        f"byte-identical: {got == want}")
+    b.update(records=len(got), byte_identical_records=same,
+             child_import_s=child_import_s(EM_POOL_WORKERS))
+    return dict(in_process=a, pooled=b)
+
+
+def child_import_s(n: int) -> dict:
+    """Wall seconds for n fresh interpreters started together, as a pool's
+    workers are, to import nothing and to import the worker module (torch
+    and the port): the part of the workers' start that is not the first
+    locus."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=ROOT)
+    out = {}
+    for label, code in (("bare", "pass"), ("workers module",
+                        "import hipstr_tpu_torch.parallel.workers")):
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, "-c", code], env=env)
+                 for _ in range(n)]
+        if any(p.wait() for p in procs):
+            raise AssertionError(f"a child importing {label!r} failed")
+        out[label] = time.perf_counter() - t0
+    log(f"EM pooled: {n} fresh interpreters started together: "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in out.items()))
+    return out
+
+
+def slice_em_problems(tmp):
+    """(EMProblem, host EM inputs) of every locus of the slice, staged as
+    the batched run stages them."""
+    from hipstr_tpu_torch.io.regions import read_regions
+    from hipstr_tpu_torch.ops.em_batched import EMProblem
+    from hipstr_tpu_torch.pipeline.processor import (GenotyperPipeline,
+                                                     Logger, PipelineOptions)
+    p = GenotyperPipeline([f"{tmp}/sim.bam"], f"{tmp}/sim.fa",
+                          PipelineOptions(min_reads=15, use_unpaired=True),
+                          Logger(quiet=True))
+    out = []
+    for region in read_regions(f"{tmp}/regions.bed", SLICE_LOCI):
+        prep = p.prepare_reads(region, p.fasta.get_sequence(region.chrom))
+        inputs = p.stutter_em_inputs(prep.alns_by_rg, prep.log_p1s,
+                                     prep.log_p2s, region)
+        out.append((EMProblem.build(prep.haploid, region.period, *inputs),
+                    (prep.haploid, region.period, *inputs)))
+    return out
+
+
+def phase_em_train(tmp, device):
+    """(c) the card's em_train_batch on the slice's EM problems, in waves
+    of EM_BATCH: float64 against the host EM on the CPU, float32 against
+    float64; seconds per wave; torch ops and kernel launches per
+    iteration."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from hipstr_tpu_torch.ops import em_batched
+    from hipstr_tpu_torch.ops.em import EMStutterGenotyper
+    staged = slice_em_problems(tmp)
+    waves = [staged[i:i + EM_BATCH] for i in range(0, len(staged), EM_BATCH)]
+    rtol, atol = EM_TOL
+    out = dict(waves=[], f64_max_rel_err=0.0, f32_max_abs_diff=0.0)
+    for wave in waves:
+        arrays, (Rm, Am, Sm) = em_batched.pack_problems([w[0] for w in wave])
+        res, secs = {}, {}
+        for name, dt in (("float32", torch.float32),
+                         ("float64", torch.float64)):
+            em_batched.em_train_batch(arrays, Sm, device, dt)   # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = em_batched.em_train_batch(arrays, Sm, device, dt)
+            res[name] = {k: v.cpu().numpy() for k, v in r.items()}
+            secs[name] = time.perf_counter() - t0
+        f64, f32 = res["float64"], res["float32"]
+        for g, (_, raw) in enumerate(wave):
+            host = EMStutterGenotyper(*raw, 0).train()
+            sm = host.stutter_model
+            want = np.array([sm.in_geom, sm.in_up, sm.in_down, sm.out_geom,
+                             sm.out_up, sm.out_down])
+            if bool(f64["converged"][g]) != host.converged or \
+                    int(f64["iters"][g]) != host.num_iterations:
+                raise AssertionError(
+                    f"EM locus {g}: card converged={f64['converged'][g]} "
+                    f"iters={f64['iters'][g]}, host {host.converged} "
+                    f"{host.num_iterations}")
+            err = np.abs(f64["params"][g] - want)
+            if np.any(err > atol + rtol * np.abs(want)):
+                raise AssertionError(f"EM locus {g}: card f64 params "
+                                     f"{f64['params'][g]}, host {want}")
+            out["f64_max_rel_err"] = max(out["f64_max_rel_err"], float(
+                np.max(err / np.maximum(np.abs(want), atol))))
+        d32 = float(np.max(np.abs(f32["params"].astype(np.float64)
+                                  - f64["params"])))
+        out["f32_max_abs_diff"] = max(out["f32_max_abs_diff"], d32)
+        it = f64["iters"]
+        # loop passes the call made: the last iteration, rounded up to the
+        # host's read of `active`
+        passes = min(100, -(-int(it.max()) // em_batched.SYNC_EVERY)
+                     * em_batched.SYNC_EVERY)
+        out["waves"].append(dict(
+            G=len(wave), Rm=Rm, Am=Am, Sm=Sm, f32_s=secs["float32"],
+            f64_s=secs["float64"], iters_max=int(it.max()),
+            iters_mean=float(it.mean()), loop_passes=passes,
+            f32_converged=int(f32["converged"].sum()),
+            f32_iters_equal=bool(np.array_equal(f32["iters"], it))))
+        log(f"EM wave G={len(wave)} Rm={Rm} Am={Am} Sm={Sm}: f32 "
+            f"{secs['float32']:.4f} s, f64 {secs['float64']:.4f} s, "
+            f"iterations max {int(it.max())} mean {float(it.mean()):.2f}, "
+            f"f32 vs f64 params max |diff| {d32:.3e}")
+
+    # torch ops and kernel launches per iteration, on the first wave in
+    # float32: a call's count less the count of a call with no iteration
+    arrays, (_, _, Sm) = em_batched.pack_problems([w[0] for w in waves[0]])
+
+    class CountOps(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    counts = {}
+    for max_iter in (0, 100):
+        with CountOps() as ops:
+            em_batched.em_train_batch(arrays, Sm, device, torch.float32,
+                                      max_iter=max_iter)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            em_batched.em_train_batch(arrays, Sm, device, torch.float32,
+                                      max_iter=max_iter)
+            torch.cuda.synchronize()
+        counts[max_iter] = (ops.n, device_events(prof)[1])
+    passes = out["waves"][0]["loop_passes"]
+    out["ops_per_iter"] = (counts[100][0] - counts[0][0]) / passes
+    out["kernels_per_iter"] = ((counts[100][1] - counts[0][1]) / passes
+                               if counts[100][1] else None)
+    log(f"EM float64 on the card vs the host EM: {len(staged)} loci, "
+        f"converged flags and iterations equal, params max rel err "
+        f"{out['f64_max_rel_err']:.3e} (rtol {rtol}, atol {atol}); float32 "
+        f"vs float64 params max |diff| {out['f32_max_abs_diff']:.3e}")
+    log(f"EM per iteration (wave 1, float32, {passes} loop passes): "
+        f"{out['ops_per_iter']:.1f} torch ops, "
+        + (f"{out['kernels_per_iter']:.1f} kernel launches"
+           if out["kernels_per_iter"] is not None else
+           "kernel launches not measured (the profiler saw none)")
+        + f"; setup {counts[0][0]} ops, {counts[0][1]} kernels")
+    check_no_jax()
+    return out
+
+
 # ---------------------------------------------------------------- phase 8
 def vcf_body(path):
     return [l for l in open(path) if not l.startswith("#")]
 
 
+def values_within(name: str, va: str, vb: str) -> bool:
+    """One field's values (| or , separated): equal, or floats that are not
+    integers within the golden suites' drift bands (0.5 for GLDIFF, 0.2
+    otherwise)."""
+    if va == vb:
+        return True
+    xa, xb = va.replace("|", ",").split(","), vb.replace("|", ",").split(",")
+    if len(xa) != len(xb):
+        return False
+    try:
+        xs = [(float(x), float(y)) for x, y in zip(xa, xb)]
+    except ValueError:
+        return False
+    if name == "GT" or any(x.is_integer() and y.is_integer() for x, y in xs):
+        return False
+    band = 0.5 if name == "GLDIFF" else 0.2
+    return all(abs(x - y) <= band for x, y in xs)
+
+
 def within_drift_bands(a: str, b: str) -> bool:
-    """Genotype and integer fields equal, float fields within the golden
-    suites' drift bands (0.5 for GLDIFF, 0.2 otherwise)."""
+    """Sites, genotype and integer fields equal, float fields (INFO's
+    learned stutter parameters among them) within the golden suites' drift
+    bands."""
     fa, fb = a.rstrip("\n").split("\t"), b.rstrip("\n").split("\t")
-    if fa[:9] != fb[:9] or len(fa) != len(fb):
+    if fa[:7] != fb[:7] or fa[8] != fb[8] or len(fa) != len(fb):
+        return False
+    ia = [kv.partition("=") for kv in fa[7].split(";")]
+    ib = [kv.partition("=") for kv in fb[7].split(";")]
+    if [k for k, _, _ in ia] != [k for k, _, _ in ib] or not all(
+            values_within(k, va, vb) for (k, _, va), (_, _, vb) in zip(ia, ib)):
         return False
     fmt = fa[8].split(":")
     for sa, sb in zip(fa[9:], fb[9:]):
         pa, pb = sa.split(":"), sb.split(":")
-        if len(pa) != len(pb):
+        if len(pa) != len(pb) or not all(
+                values_within(n, va, vb) for n, va, vb in zip(fmt, pa, pb)):
             return False
-        for name, va, vb in zip(fmt, pa, pb):
-            if va == vb:
-                continue
-            try:
-                xs = [(float(x), float(y)) for x, y in
-                      zip(va.split("|"), vb.split("|"))]
-            except ValueError:
-                return False
-            if name == "GT" or any(x.is_integer() and y.is_integer()
-                                   for x, y in xs):
-                return False
-            band = 0.5 if name == "GLDIFF" else 0.2
-            if any(abs(x - y) > band for x, y in xs):
-                return False
     return True
+
+
+def hold_to_reference(label: str, out: str, ref: str) -> None:
+    """The VCF body at `out` against the reference body at `ref`: the same
+    records, each byte-identical or within the drift bands."""
+    got, want = vcf_body(out), vcf_body(ref)
+    if len(got) != len(want):
+        raise AssertionError(f"{label} VCF: {len(got)} records, reference "
+                             f"{len(want)}")
+    diffs = [(a, b) for a, b in zip(got, want) if a != b]
+    for a, b in diffs:
+        log(f"{label} differs from the reference:\n  port {a.strip()}\n  "
+            f"ref  {b.strip()}")
+        if not within_drift_bands(a, b):
+            raise AssertionError(f"{label} VCF outside the golden drift "
+                                 "bands")
+    log(f"{label} cross-check: {len(got)} records, "
+        f"{len(got) - len(diffs)} byte-identical to the reference")
+
+
+def phase_em_reference(tmp, device_name="cuda"):
+    """(d) the float64 VCF of the reference dataset without a stutter model
+    (the device EM), in-process and pooled, against
+    tests/data/torch_port_ref_em_f64.vcf."""
+    from hipstr_tpu_torch import cli
+    from hipstr_tpu_torch.utils.simdata import (REFERENCE_EM_ARGS,
+                                                reference_loci, write_sim)
+    write_sim(tmp, reference_loci())
+    for label, workers in (("in-process", 1), ("pooled", EM_POOL_WORKERS)):
+        out = f"{tmp}/ref64_em_{label}.vcf"
+        with watchdog(POOL_WATCHDOG_S):
+            pipeline, _ = cli.run(
+                ["--bams", f"{tmp}/sim.bam", "--fasta", f"{tmp}/sim.fa",
+                 "--regions", f"{tmp}/regions.bed", "--str-vcf", out,
+                 "--dtype", "float64", "--device", device_name, "--silent",
+                 "--host-workers", str(workers)] + REFERENCE_EM_ARGS)
+        if not pipeline.last_run_stats["em_waves"]:
+            raise AssertionError(f"f64 EM {label}: no device EM wave")
+        hold_to_reference(f"f64 EM {label}", out, REF_EM_VCF)
+    check_no_jax()
 
 
 def phase_reference(tmp, device_name="cuda"):
@@ -708,27 +1089,14 @@ def phase_reference(tmp, device_name="cuda"):
     from hipstr_tpu_torch.utils.simdata import (REFERENCE_ARGS,
                                                 reference_loci, write_sim)
     write_sim(tmp, reference_loci())
-    want = vcf_body(REF_VCF)
-    for label, extra in (("batched", []), ("sequential", ["--batch-loci",
-                                                          "0"])):
+    for label, extra in (("batched", ["--host-workers", "1"]),
+                         ("sequential", ["--batch-loci", "0"])):
         out = f"{tmp}/ref64_{label}.vcf"
         cli.run(["--bams", f"{tmp}/sim.bam", "--fasta", f"{tmp}/sim.fa",
                  "--regions", f"{tmp}/regions.bed", "--str-vcf", out,
                  "--dtype", "float64", "--device", device_name, "--silent"]
                 + REFERENCE_ARGS + extra)
-        got = vcf_body(out)
-        if len(got) != len(want):
-            raise AssertionError(f"f64 {label} VCF: {len(got)} records, "
-                                 f"reference {len(want)}")
-        diffs = [(a, b) for a, b in zip(got, want) if a != b]
-        for a, b in diffs:
-            log(f"f64 {label} differs from the reference:\n  port "
-                f"{a.strip()}\n  ref  {b.strip()}")
-            if not within_drift_bands(a, b):
-                raise AssertionError(f"f64 {label} VCF outside the golden "
-                                     "drift bands")
-        log(f"f64 cross-check ({label}): {len(got)} records, "
-            f"{len(got) - len(diffs)} byte-identical to the reference")
+        hold_to_reference(f"f64 {label}", out, REF_VCF)
 
 # ---------------------------------------------------------------- phase 9
 # The least time the card could take for a kernel's work on these inputs:
@@ -977,7 +1345,8 @@ def phase_real_shapes(tmp, device, slice_shapes, seq_shapes, loci):
     k2 = Capture(hmm2, "segment_kernel", shape_segment,
                  top(slice_shapes["segment"]))
     with k1, k2:
-        cli.run(base + ["--batch-loci", "32", "--str-vcf", f"{tmp}/cap.vcf"])
+        cli.run(base + ["--batch-loci", "32", "--host-workers", "1",
+                        "--str-vcf", f"{tmp}/cap.vcf"])
     k4 = Capture(hmm_scan, "flank_scan_kernel", shape_flank_scan,
                  top(seq_shapes["flank_scan"]))
     with k4:
@@ -1047,14 +1416,18 @@ def main() -> int:
         seq_launches, seq_shapes, seq_stats = phase_sequential(
             f"{tmp}/slice")
         mode_launches, loci, mode_stats = phase_modes(f"{tmp}/slice", device)
-        phase_em(f"{tmp}/slice")
+        phase_em_sequential(f"{tmp}/slice")
+        em_stats = phase_em(f"{tmp}/slice")
+        em_stats["train"] = phase_em_train(f"{tmp}/slice", device)
+        os.makedirs(f"{tmp}/ref_em")
+        phase_em_reference(f"{tmp}/ref_em")
         phase_reference(f"{tmp}/ref")
         check_no_jax()
         real = phase_real_shapes(f"{tmp}/slice", device, slice_shapes,
                                  seq_shapes, loci)
         check_no_jax()
     log(json.dumps({"slice": slice_stats, "sequential": seq_stats,
-                    "modes": mode_stats, "card": card,
+                    "modes": mode_stats, "em": em_stats, "card": card,
                     "ptxas": {k: ptxas[k] for k in ("flank_scan",
                                                     "segment_scan")}}))
     launches.update(flank_scan=seq_launches["flank_scan"],

@@ -15,10 +15,12 @@ Package layout:
   native.py    the native host library (native/*.cpp, built here) + bindings
   align/ io/ models/ phasing/    host layers (copies)
   ops/         HMM containers, stutter emissions, segment forward,
-               seed combination, posteriors (torch and host), host EM
+               seed combination, posteriors (torch and host), host EM,
+               batched stutter EM (torch)
   pipeline/    per-locus packing (prepare_locus), the torch aligner, the
                sequential run, and the host pipeline (copies)
-  parallel/    the batched executor (run_batched)
+  parallel/    the batched executor (run_batched) and the host worker
+               pool (run_pooled)
   utils/       simulated datasets, math, timers
   cli.py       `python -m hipstr_tpu_torch.cli`
 """

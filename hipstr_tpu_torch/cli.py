@@ -3,16 +3,20 @@
 `build_parser` is a copy of the JAX package's flag table
 (hipstr_tpu/cli.py::build_parser), every flag as it is there, plus
 `--device cuda|cpu` (default cuda; `cuda` without a visible card is an
-error).  The batched in-process run (`--batch-loci N`, N > 0, with a
-stutter model) and the sequential run (`--batch-loci 0`, with a model or
-the host stutter EM) are ported; the options whose paths are not ported
-yet stop with a "not yet ported" error and a non-zero exit rather than
-fall back.
+error).  The batched run (`--batch-loci N`, N > 0) in-process or with the
+host worker pool (`--host-workers`), and the sequential run (`--batch-loci
+0`) are ported, each with a stutter model or learning one: on the card the
+batched runs learn each wave's models together (the device EM), elsewhere
+each locus runs the host EM.  The options whose paths are not ported yet
+stop with a "not yet ported" error and a non-zero exit rather than fall
+back.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
+import os
 import sys
 
 from .device import resolve
@@ -151,22 +155,26 @@ def build_parser() -> argparse.ArgumentParser:
 
 def not_ported(args) -> str:
     """The first requested option whose path is not ported, or ''."""
-    batched = args.batch_loci > 0
     if args.workers > 1:
         return "--workers"
-    if args.host_workers > 1 and batched:
-        # the JAX CLI pools host workers only for batched runs
-        return "--host-workers > 1"
     if args.distributed:
         return "--distributed"
     if args.profile:
         return "--profile"
     if args.platform:
         return "--platform (use --device)"
-    if batched and not args.def_stutter_model and not args.stutter_in:
-        return ("the batched stutter EM (pass --def-stutter-model or "
-                "--stutter-in, or run sequentially with --batch-loci 0)")
     return ""
+
+
+def resolve_host_workers(n: int, device, n_cores: int) -> int:
+    """--host-workers as the JAX CLI resolves it: a given count stays; the
+    default -1 pools min(4, n_cores - 2) workers on the card when at least
+    6 cores are free to this process, and runs in-process (1) otherwise."""
+    if n >= 0:
+        return n
+    if device.type == "cuda" and n_cores >= 6:
+        return min(4, n_cores - 2)
+    return 1
 
 
 class UsageError(Exception):
@@ -174,9 +182,9 @@ class UsageError(Exception):
 
 
 def run(argv=None):
-    """Parse `argv` and run the batched or (`--batch-loci 0`) sequential
-    pipeline; returns (pipeline, counters).  Raises UsageError for a refused command line; device and
-    kernel errors propagate."""
+    """Parse `argv` and run the pooled, batched or (`--batch-loci 0`)
+    sequential pipeline; returns (pipeline, counters).  Raises UsageError
+    for a refused command line; device and kernel errors propagate."""
     args = build_parser().parse_args(argv)
     missing = not_ported(args)
     if missing:
@@ -242,7 +250,21 @@ def run(argv=None):
     pipeline = GenotyperPipeline(bam_paths, args.fasta, opts, logger,
                                  bam_samps, bam_libs,
                                  lib_field=args.lib_field)
-    if args.batch_loci > 0:
+    host_workers = resolve_host_workers(
+        args.host_workers, device, len(os.sched_getaffinity(0)))
+    if host_workers > 1 and args.batch_loci > 0 and not (
+            args.pass_bam or args.filt_bam):
+        # host worker pool: per-locus host phases in N processes, this one
+        # owns the device (parallel/workers.py)
+        from .parallel.workers import run_pooled
+        worker_spec = dict(bam_paths=bam_paths, fasta_path=args.fasta,
+                           opts=copy.deepcopy(opts), bam_samps=bam_samps,
+                           bam_libs=bam_libs, lib_field=args.lib_field)
+        counters = run_pooled(pipeline, args.regions, args.str_vcf, device,
+                              worker_spec, n_workers=host_workers,
+                              batch_size=args.batch_loci,
+                              full_command=" ".join(sys.argv))
+    elif args.batch_loci > 0:
         from .parallel.executor import run_batched
         counters = run_batched(pipeline, args.regions, args.str_vcf, device,
                                batch_size=args.batch_loci,

@@ -8,12 +8,18 @@ on the card the fused posteriors) before fetching any result, so device
 work overlaps host work across waves.  The adaptive per-locus rounds
 regroup and dispatch together.
 
+Without a stutter model, on the card the stutter models of each wave are
+learned together before its dispatch (ops/em_batched.em_train_batch, in
+the run's dtype); on the CPU each locus keeps the host EM (ops/em.py), the
+golden-parity path.
+
 Differences from the JAX executor: chunks are stacked with numpy and moved
 with `torch.from_numpy(...).to(device)`; the locus axis is padded only to
-the real group size (kernels take runtime extents); the period is always
-runtime data, so groups merge across periods.  Only host errors are
-counted per locus (`genotype_fail`): an exception from a dispatch, a
-kernel build or launch, or a fetch propagates and fails the run.
+the real group size (kernels take runtime extents), in the EM too; the
+period is always runtime data, so groups merge across periods.  Only host
+errors are counted per locus (`genotype_fail`): an exception from a
+dispatch, the EM, a kernel build or launch, or a fetch propagates and
+fails the run.
 """
 
 from __future__ import annotations
@@ -28,7 +34,8 @@ import torch
 from ..device import resolve_dtype
 from ..io.regions import read_regions
 from ..io.vcf_write import VCFWriter, build_vcf_header
-from ..models.stutter import write_stutter_models
+from ..models.stutter import StutterModel, write_stutter_models
+from ..ops.em_batched import EMProblem, em_train_batch, pack_problems
 from ..ops.hmm2 import batched_forward
 from ..ops.posteriors import batched_pool_posteriors
 from ..pipeline.hap_aligner import locus_to_torch, prepare_locus, stack_arrays
@@ -148,6 +155,59 @@ def device_post_enabled(device: torch.device) -> bool:
     return device.type == "cuda"
 
 
+def device_em_enabled(opts, device: torch.device) -> bool:
+    """Learn the stutter models of each wave together on the card
+    (ops/em_batched.py) when no model is given; the CPU keeps the host
+    per-locus EM (the golden-parity path)."""
+    return (opts.def_stutter_model is None and not opts.stutter_in
+            and device.type == "cuda")
+
+
+class EMStats:
+    """The device EM's waves and the histogram of its iteration counts."""
+
+    def __init__(self):
+        self.waves = 0
+        self.iter_hist: Dict[int, int] = {}
+
+    def as_dict(self) -> dict:
+        return dict(em_waves=self.waves, em_iter_hist=dict(
+            sorted(self.iter_hist.items())))
+
+
+def solve_em(problems: List[EMProblem], opts, device: torch.device,
+             stats: EMStats):
+    """Train the stutter models of a wave in one em_train_batch call on
+    `device`, in the run's dtype; returns (params [G, 6] float64 numpy,
+    converged [G] numpy)."""
+    arrays, (_, _, Sm) = pack_problems(problems)
+    out = em_train_batch(arrays, Sm, device, resolve_dtype(opts.dtype),
+                         max_iter=opts.max_em_iter,
+                         min_LL_abs_change=opts.abs_ll_converge,
+                         min_LL_frac_change=opts.frac_ll_converge)
+    params = out["params"].cpu().numpy().astype(np.float64)
+    conv = out["converged"].cpu().numpy()
+    stats.waves += 1
+    for n in out["iters"].cpu().tolist():
+        stats.iter_hist[n] = stats.iter_hist.get(n, 0) + 1
+    return params, conv
+
+
+def em_problem(pipeline, region, chrom_seq: str):
+    """Stage 1 of a locus whose stutter model the device EM learns:
+    (prepared reads, EMProblem), or None when the locus stops here (its
+    counter updated)."""
+    prep = pipeline.prepare_reads(region, chrom_seq)
+    if prep is None:
+        return None
+    with pipeline.timer.time("Stutter estimation"):
+        inputs = pipeline.stutter_em_inputs(prep.alns_by_rg, prep.log_p1s,
+                                            prep.log_p2s, region)
+    if inputs is None:
+        return None
+    return prep, EMProblem.build(prep.haploid, region.period, *inputs)
+
+
 FAILED = object()
 
 
@@ -182,15 +242,8 @@ def _fetch(res):
 def run_batched(pipeline, regions_bed: str, out_vcf: Optional[str],
                 device: torch.device, batch_size: int = 32,
                 full_command: str = "hipstr-tpu-torch"):
-    """Batched genotyping run on `device`; the JAX executor's outputs.
-
-    Needs a fixed stutter model (`def_stutter_model` or `stutter_in`): the
-    batched stutter EM is not ported yet."""
+    """Batched genotyping run on `device`; the JAX executor's outputs."""
     opts = pipeline.opts
-    if opts.def_stutter_model is None and not opts.stutter_in:
-        raise NotImplementedError(
-            "stutter EM is not yet ported to hipstr_tpu_torch: pass a "
-            "stutter model (--def-stutter-model or --stutter-in)")
     regions = read_regions(regions_bed, opts.max_regions, opts.chrom,
                            opts.locus_shard)
     writer = open_vcf(pipeline, out_vcf, full_command)
@@ -356,10 +409,51 @@ def run_batched(pipeline, regions_bed: str, out_vcf: Optional[str],
         prepared.append(
             LocusWorkItem(region, g, arrays, statics, local_chrom_seq, order))
 
+    em_device = device_em_enabled(opts, device)
+    em_stats = EMStats()
+    # (order, region, prepared reads, EMProblem, chrom_seq) of loci whose
+    # stutter model the next wave learns on the device
+    em_staged: List[Tuple[int, object, object, EMProblem, str]] = []
+
+    def solve_staged_em() -> None:
+        """Learn every staged locus's stutter model in one call (reference
+        train loop src/em_stutter_genotyper.cpp:170-226), then finish their
+        host preparation; a device error ends the run, a host error fails
+        the locus."""
+        nonlocal em_staged
+        if not em_staged:
+            return
+        staged, em_staged = em_staged, []
+        with pipeline.timer.time("Stutter estimation (device)"):
+            params, conv = solve_em([s[3] for s in staged], opts, device,
+                                    em_stats)
+        for i, (order, region, prep, _prob, local_seq) in enumerate(staged):
+            try:
+                if not conv[i]:
+                    pipeline.counters.em_fail += 1
+                    pipeline.logger.log(f"Stutter EM failed for {region}")
+                    settle(order)
+                    continue
+                model = StutterModel(*params[i], region.period)
+                pipeline.register_learned_model(region, model)
+                if opts.skip_genotyping:
+                    settle(order)
+                    continue
+                g = pipeline.finish_prepare(prep, region, local_seq, model)
+                if g is None:
+                    settle(order)
+                    continue
+                stage_locus(g, region, local_seq, order)
+            except Exception as exc:
+                pipeline.counters.genotype_fail += 1
+                settle(order)
+                pipeline.logger.log(f"ERROR at {region}: {exc!r}")
+
     def launch_wave():
-        """Dispatch the prepared loci, then settle the previous wave while
-        this one computes."""
+        """Learn the staged stutter models, dispatch the prepared loci, then
+        settle the previous wave while this one computes."""
         nonlocal prepared, in_flight
+        solve_staged_em()
         for item in prepared:
             aligner.add(item)
         prepared = []
@@ -382,17 +476,24 @@ def run_batched(pipeline, regions_bed: str, out_vcf: Optional[str],
             # host preparation errors fail the locus; the device wave below
             # runs outside this handler, so device errors end the run
             try:
-                g = pipeline.prepare_locus_genotyper(region, chrom_seq)
-                if g is None:
-                    settle(order)
-                    continue
-                stage_locus(g, region, chrom_seq, order)
+                if em_device:
+                    staged = em_problem(pipeline, region, chrom_seq)
+                    if staged is None:
+                        settle(order)
+                        continue
+                    em_staged.append((order, region, *staged, chrom_seq))
+                else:
+                    g = pipeline.prepare_locus_genotyper(region, chrom_seq)
+                    if g is None:
+                        settle(order)
+                        continue
+                    stage_locus(g, region, chrom_seq, order)
             except Exception as exc:
                 pipeline.counters.genotype_fail += 1
                 settle(order)
                 pipeline.logger.log(f"ERROR at {region}: {exc!r}")
                 continue
-            if len(prepared) >= batch_size:
+            if len(prepared) + len(em_staged) >= batch_size:
                 launch_wave()
 
         launch_wave()            # dispatch the tail, settle the previous wave
@@ -407,7 +508,7 @@ def run_batched(pipeline, regions_bed: str, out_vcf: Optional[str],
         round_hist={int(k): int(v) for k, v in aligner.round_hist.items()},
         spec_hits=int(aligner.spec_hits),
         spec_misses=int(aligner.spec_misses),
-        dispatches=int(aligner.dispatches))
+        dispatches=int(aligner.dispatches), **em_stats.as_dict())
 
     close_outputs(pipeline, writer)
     return pipeline.counters

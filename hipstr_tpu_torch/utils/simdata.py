@@ -2,9 +2,9 @@
 
 `write_sim` is the dataset writer of the JAX package's tests
 (tests/test_workers.py::_write_sim), here without any JAX import so the
-card's smoke run can use it.  The loci come from
-hipstr_tpu.utils.simulate, seeded, so the same dataset is made anew on any
-machine.
+card's smoke run can use it.  The loci come from the port's copy of the
+simulator (utils/simulate.py), seeded, so the same dataset is made anew on
+any machine.
 """
 
 from __future__ import annotations
@@ -71,3 +71,6 @@ def reference_loci():
 # 20-reads-per-sample depth)
 REFERENCE_ARGS = ["--min-reads", "15", "--use-unpaired",
                   "--def-stutter-model", "--batch-loci", "32"]
+# the same run learning each locus's stutter model (the EM anchor,
+# tests/data/torch_port_ref_em_f64.vcf)
+REFERENCE_EM_ARGS = [a for a in REFERENCE_ARGS if a != "--def-stutter-model"]

@@ -79,8 +79,8 @@ def capture(data: str, saved: str) -> None:
 
     path({"emission": (hmm2, "stutter_emissions", c.shape_emission),
           "segment": (hmm2, "segment_kernel", c.shape_segment)},
-         lambda: cli.run(base + ["--batch-loci", "32", "--str-vcf",
-                                 f"{data}/ab.vcf"]))
+         lambda: cli.run(base + ["--batch-loci", "32", "--host-workers",
+                                 "1", "--str-vcf", f"{data}/ab.vcf"]))
     path({"flank_scan": (hmm_scan, "flank_scan_kernel",
                          c.shape_flank_scan)},
          lambda: cli.run(base + ["--batch-loci", "0", "--str-vcf",

@@ -71,7 +71,8 @@ def test_the_scan_sees_lazy_imports(tmp_path):
 
 @pytest.mark.parametrize("modules", [
     ["hipstr_tpu_torch.cli", "hipstr_tpu_torch.pipeline.sequential",
-     "hipstr_tpu_torch.parallel.executor", "hipstr_tpu_torch.utils.simdata"]],
+     "hipstr_tpu_torch.parallel.executor", "hipstr_tpu_torch.utils.simdata",
+     "hipstr_tpu_torch.ops.em_batched", "hipstr_tpu_torch.parallel.workers"]],
     ids=["entry-points"])
 def test_importing_the_port_loads_no_jax(modules):
     script = ("import importlib, sys\n"

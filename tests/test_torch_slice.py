@@ -9,7 +9,9 @@
 * without a card or nvcc, the device and the kernel builder raise;
 * the CLI refuses the paths that are not ported (the sequential path,
   `--batch-loci 0`, is ported and held to the JAX package in
-  tests/test_torch_sequential.py).
+  tests/test_torch_sequential.py; the batched EM in
+  tests/test_torch_em_batched.py, the host worker pool in
+  tests/test_torch_workers.py).
 """
 
 import os
@@ -189,12 +191,9 @@ DEF = "--def-stutter-model"
 
 
 @pytest.mark.parametrize("flags", [
-    [DEF, "--workers", "2"], [DEF, "--host-workers", "3"],
-    [DEF, "--distributed"], [DEF, "--profile", "p"],
-    [DEF, "--platform", "cpu"],
-    []],                             # no model, batched: the batched EM
-    ids=["workers", "host-workers", "distributed", "profile", "platform",
-         "stutter-em"])
+    [DEF, "--workers", "2"], [DEF, "--distributed"], [DEF, "--profile", "p"],
+    [DEF, "--platform", "cpu"]],
+    ids=["workers", "distributed", "profile", "platform"])
 def test_cli_refuses_unported_paths(flags, capsys, tmp_path):
     args = _cli_args(str(tmp_path), str(tmp_path / "x.vcf"))
     assert cli.main(args + ["--device", "cpu"] + flags) == 1
