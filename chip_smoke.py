@@ -49,7 +49,22 @@ Phases (any failure raises and exits non-zero):
      passed (captured in a second run), float32 and float64: against its
      plain version, CUDA-event times over 20 launches with L2 warm and with
      L2 flushed (64 MiB written before each launch), and the bound the
-     card allows for that work (`bound`).
+     card allows for that work (`bound`);
+ 10. golden: every configuration of utils.simdata.GOLDEN_CONFIGS (the
+     datasets and flags of the golden suites) through the CLI in float64
+     batched and sequential and in float32 batched, each held to its
+     float64 anchor tests/data/torch_port_golden_<name>_f64.vcf (records
+     that differ logged, every record within the drift bands), fail 0,
+     K1 + K2 (batched) or K1 + K4 (sequential) launched and no other;
+ 11. de novo: (a) the de novo golden suite's trio genotyped in float64
+     against tests/data/torch_port_denovo_str_f64.vcf, then the
+     DenovoFinder's trio and family scans with --device-batch 256
+     byte-identical to tests/data/torch_port_denovo_{trio,family}_f64.vcf;
+     (b) a synthetic 1000-record, 100-family cohort, both scans on the
+     card (records/s, jobs, dispatches, every dispatch within
+     denovo.likelihoods.DISPATCH_BYTES), its first 100 records also on the
+     host path (`--device cpu --device-batch 0`, in two processes beside
+     the card's runs) and equal.
 
 The in-process runs of phases 4, 7(a), 8 and 9 pass --host-workers 1, so
 their numbers stay comparable whatever the machine's core count.  After
@@ -72,6 +87,14 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 REF_VCF = os.path.join(ROOT, "tests", "data", "torch_port_ref_f64.vcf")
 REF_EM_VCF = os.path.join(ROOT, "tests", "data", "torch_port_ref_em_f64.vcf")
+DENOVO_STR_VCF = os.path.join(ROOT, "tests", "data",
+                              "torch_port_denovo_str_f64.vcf")
+# phase 10's runs of each golden configuration: (label, dtype, mode flags)
+GOLDEN_RUNS = (("f64 batched", "float64", ["--host-workers", "1"]),
+               ("f64 sequential", "float64", ["--batch-loci", "0"]),
+               ("f32 batched", "float32", ["--host-workers", "1"]))
+COHORT_HOST_RECORDS = 100   # phase 11(b): records also run on the host path
+HOST_WATCHDOG_S = 600       # phase 11(b)'s host processes take well under
 SLICE_LOCI = 60
 SLICE_READS = 170
 # (rtol, atol) of kernel vs plain version.  float64: the kernels replay the
@@ -1042,22 +1065,27 @@ def within_drift_bands(a: str, b: str) -> bool:
     return True
 
 
-def hold_to_reference(label: str, out: str, ref: str) -> None:
+def hold_to_reference(label: str, out: str, ref: str,
+                      show: bool = True) -> int:
     """The VCF body at `out` against the reference body at `ref`: the same
-    records, each byte-identical or within the drift bands."""
+    records, each byte-identical or within the drift bands (each record
+    that differs is logged when `show`).  Returns the byte-identical
+    count."""
     got, want = vcf_body(out), vcf_body(ref)
     if len(got) != len(want):
         raise AssertionError(f"{label} VCF: {len(got)} records, reference "
                              f"{len(want)}")
     diffs = [(a, b) for a, b in zip(got, want) if a != b]
     for a, b in diffs:
-        log(f"{label} differs from the reference:\n  port {a.strip()}\n  "
-            f"ref  {b.strip()}")
+        if show:
+            log(f"{label} differs from the reference:\n  port {a.strip()}"
+                f"\n  ref  {b.strip()}")
         if not within_drift_bands(a, b):
             raise AssertionError(f"{label} VCF outside the golden drift "
                                  "bands")
     log(f"{label} cross-check: {len(got)} records, "
         f"{len(got) - len(diffs)} byte-identical to the reference")
+    return len(got) - len(diffs)
 
 
 def phase_em_reference(tmp, device_name="cuda"):
@@ -1388,6 +1416,209 @@ def phase_real_shapes(tmp, device, slice_shapes, seq_shapes, loci):
     return results
 
 
+# --------------------------------------------------------------- phase 10
+def phase_golden(tmp):
+    """Every golden configuration on the card, float64 batched and
+    sequential and float32 batched, against its float64 anchor; each run's
+    launches counted from 0."""
+    import torch
+    from hipstr_tpu_torch import cli, kernels
+    from hipstr_tpu_torch.utils.simdata import (GOLDEN_CONFIGS, golden_args,
+                                                write_golden)
+    out = {}
+    for name, (dataset, _) in GOLDEN_CONFIGS.items():
+        d = f"{tmp}/{name}"
+        write_golden(d, **dataset)
+        for label, dtype, extra in GOLDEN_RUNS:
+            vcf = f"{d}/{label.replace(' ', '_')}.vcf"
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            _, counters = cli.run(golden_args(name, d, vcf) + [
+                "--dtype", dtype, "--device", "cuda"] + extra)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+            if counters.genotype_fail:
+                raise AssertionError(f"golden {name} {label}: fail="
+                                     f"{counters.genotype_fail}")
+            used, unused = (("emission", "flank_scan"),
+                            ("segment", "segment_scan")) \
+                if "--batch-loci" in extra else \
+                (("emission", "segment"), ("flank_scan", "segment_scan"))
+            if not all(launches[k] for k in used) or any(
+                    launches[k] for k in unused):
+                raise AssertionError(f"golden {name} {label}: launches "
+                                     f"{launches}")
+            same = hold_to_reference(
+                f"golden {name} {label}", vcf,
+                os.path.join(ROOT, "tests", "data",
+                             f"torch_port_golden_{name}_f64.vcf"),
+                show=dtype == "float64")
+            n = len(vcf_body(vcf))
+            loci = dataset["loci"]
+            log(f"golden {name} {label}: {n} records, {same} byte-identical "
+                f"to the f64 anchor, wall {wall:.3f} s, {loci / wall:.3f} "
+                f"loci/s, launches {launches}")
+            out[f"{name} {label}"] = dict(records=n, byte_identical=same,
+                                          wall_s=wall, loci_per_s=loci / wall,
+                                          launches=launches)
+        check_no_jax()
+    return out
+
+
+# --------------------------------------------------------------- phase 11
+def denovo_finder(args):
+    """The port's DenovoFinder in-process; (wall s, the dispatches it
+    made)."""
+    import torch
+    from hipstr_tpu_torch import denovo_finder as finder
+    from hipstr_tpu_torch.denovo import likelihoods
+    likelihoods.DISPATCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if finder.main(args):
+        raise AssertionError(f"denovo_finder {args} failed")
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, list(likelihoods.DISPATCHES)
+
+
+def dispatch_stats(dispatches) -> dict:
+    """Jobs, dispatches, their seconds (upload to results on the host),
+    the largest dispatch's bytes and jobs per allele bucket; every dispatch
+    within the budget (or a single job)."""
+    from hipstr_tpu_torch.denovo.likelihoods import DISPATCH_BYTES
+    over = [x for x in dispatches
+            if x["bytes"] > DISPATCH_BYTES and x["jobs"] > 1]
+    if over:
+        raise AssertionError(f"dispatches over the budget: {over[:3]}")
+    buckets = {}
+    for x in dispatches:
+        buckets[x["Ap"]] = buckets.get(x["Ap"], 0) + x["jobs"]
+    return dict(jobs=sum(x["jobs"] for x in dispatches),
+                dispatches=len(dispatches),
+                dispatch_s=sum(x["s"] for x in dispatches),
+                max_dispatch_bytes=max((x["bytes"] for x in dispatches),
+                                       default=0),
+                jobs_per_bucket=dict(sorted(buckets.items())))
+
+
+def phase_denovo_chain(tmp):
+    """(a) the de novo golden suite's trio: genotyped on the card in float64
+    against its anchor, then both scans with --device-batch 256
+    byte-identical to the JAX DenovoFinder's anchors."""
+    from hipstr_tpu_torch import cli
+    from hipstr_tpu_torch.utils.simdata import (DENOVO_GENOTYPE_ARGS,
+                                                write_phased_snps,
+                                                write_trio_denovo)
+    locs = write_trio_denovo(tmp)
+    snps = write_phased_snps(tmp, [l.chrom for l in locs])
+    str_vcf = f"{tmp}/str.vcf"
+    cli.run(["--bams", f"{tmp}/sim.bam", "--fasta", f"{tmp}/sim.fa",
+             "--regions", f"{tmp}/regions.bed", "--str-vcf", str_vcf,
+             "--dtype", "float64", "--device", "cuda", "--silent",
+             "--host-workers", "1"] + DENOVO_GENOTYPE_ARGS)
+    same = hold_to_reference("de novo STR f64", str_vcf, DENOVO_STR_VCF)
+    out = dict(str_records=len(vcf_body(str_vcf)), str_byte_identical=same)
+    for scan in ("trio", "family"):
+        vcf = f"{tmp}/{scan}.vcf"
+        wall, dispatches = denovo_finder(
+            ["--fam", f"{tmp}/trio.fam", "--str-vcf", str_vcf,
+             "--denovo-vcf", vcf, "--device", "cuda", "--device-batch",
+             "256"] + (["--snp-vcf", snps] if scan == "family" else []))
+        got = vcf_body(vcf)
+        want = vcf_body(os.path.join(ROOT, "tests", "data",
+                                     f"torch_port_denovo_{scan}_f64.vcf"))
+        if got != want or not got:
+            for a, b in zip(got, want):
+                if a != b:
+                    log(f"de novo {scan} differs:\n  port {a.strip()}\n  "
+                        f"ref  {b.strip()}")
+            raise AssertionError(f"de novo {scan} scan: {len(got)} records, "
+                                 f"not the anchor's {len(want)}")
+        stats = dispatch_stats(dispatches)
+        log(f"de novo chain {scan} scan: {len(got)} records byte-identical "
+            f"to the anchor, wall {wall:.3f} s, {stats}")
+        out[scan] = dict(wall_s=wall, **stats)
+    check_no_jax()
+    return out
+
+
+HOST_FINDER = ("import sys\n"
+               "from hipstr_tpu_torch.denovo_finder import main\n"
+               "rc = main(sys.argv[1:])\n"
+               "assert not [m for m in sys.modules if sys.modules[m] is not "
+               "None and m.split('.')[0] in ('jax', 'hipstr_tpu')]\n"
+               "sys.exit(rc)\n")
+
+
+def phase_denovo_cohort(tmp, card):
+    """(b) the synthetic 1000-record, 100-family cohort: both scans on the
+    card, and the first COHORT_HOST_RECORDS records on the host path in two
+    processes (no card, no JAX) run beside them."""
+    import torch
+    from hipstr_tpu_torch.utils.simdata import write_denovo_cohort
+    t0 = time.perf_counter()
+    fam, str_vcf, snp_vcf = write_denovo_cohort(tmp)
+    lines = open(str_vcf).read().splitlines(keepends=True)
+    header = [l for l in lines if l.startswith("#")]
+    body = [l for l in lines if not l.startswith("#")]
+    n_samples = len(header[-1].split("\t")) - 9
+    head = f"{tmp}/head.vcf"
+    with open(head, "w") as fh:
+        fh.writelines(header + body[:COHORT_HOST_RECORDS])
+    log(f"de novo cohort: {len(body)} records, {n_samples} samples, "
+        f"written in {time.perf_counter() - t0:.2f} s")
+    scans = {"trio": [], "family": ["--snp-vcf", snp_vcf]}
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=ROOT,
+               OMP_NUM_THREADS="1")
+    procs = {scan: subprocess.Popen(
+        [sys.executable, "-c", HOST_FINDER, "--fam", fam, "--str-vcf", head,
+         "--denovo-vcf", f"{tmp}/host_{scan}.vcf", "--device", "cpu",
+         "--device-batch", "0"] + extra, env=env, cwd=ROOT)
+        for scan, extra in scans.items()}
+    out = {}
+    try:
+        for scan, extra in scans.items():
+            torch.cuda.reset_peak_memory_stats()
+            vcf = f"{tmp}/card_{scan}.vcf"
+            wall, dispatches = denovo_finder(
+                ["--fam", fam, "--str-vcf", str_vcf, "--denovo-vcf", vcf,
+                 "--device", "cuda", "--device-batch", "256"] + extra)
+            stats = dispatch_stats(dispatches)
+            peak = torch.cuda.max_memory_allocated()
+            n = len(vcf_body(vcf))
+            if n != len(body):
+                raise AssertionError(f"cohort {scan}: {n} records")
+            log(f"de novo cohort {scan} scan on the card: {n} records in "
+                f"{wall:.3f} s = {n / wall:.3f} records/s, {stats}, peak "
+                f"device memory {peak / 2**20:.1f} MiB ({card})")
+            out[scan] = dict(records=n, wall_s=wall, records_per_s=n / wall,
+                             peak_device_bytes=peak, **stats)
+        t0 = time.perf_counter()
+        for scan, proc in procs.items():
+            if proc.wait(timeout=HOST_WATCHDOG_S):
+                raise AssertionError(f"cohort host {scan} scan failed")
+        log(f"de novo cohort: host runs done {time.perf_counter() - t0:.3f} "
+            "s after the card's")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for scan in scans:
+        host = vcf_body(f"{tmp}/host_{scan}.vcf")
+        card_lines = vcf_body(f"{tmp}/card_{scan}.vcf")[:len(host)]
+        if len(host) != COHORT_HOST_RECORDS or host != card_lines:
+            raise AssertionError(f"cohort {scan}: the card's first "
+                                 f"{len(host)} records differ from the "
+                                 "host path's")
+        log(f"de novo cohort {scan}: the first {len(host)} records equal "
+            "on the card and the host path")
+    check_no_jax()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1426,8 +1657,17 @@ def main() -> int:
         real = phase_real_shapes(f"{tmp}/slice", device, slice_shapes,
                                  seq_shapes, loci)
         check_no_jax()
+        t0 = time.perf_counter()
+        golden = phase_golden(f"{tmp}/golden")
+        log(f"phase 10 (golden) took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        os.makedirs(f"{tmp}/denovo")
+        denovo = dict(chain=phase_denovo_chain(f"{tmp}/denovo"),
+                      cohort=phase_denovo_cohort(f"{tmp}/cohort", card))
+        log(f"phase 11 (de novo) took {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"slice": slice_stats, "sequential": seq_stats,
-                    "modes": mode_stats, "em": em_stats, "card": card,
+                    "modes": mode_stats, "em": em_stats, "golden": golden,
+                    "denovo": denovo, "card": card,
                     "ptxas": {k: ptxas[k] for k in ("flank_scan",
                                                     "segment_scan")}}))
     launches.update(flank_scan=seq_launches["flank_scan"],

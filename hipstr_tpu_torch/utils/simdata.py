@@ -1,16 +1,27 @@
 """Simulated BAM/FASTA/BED datasets for the port's checks.
 
 `write_sim` is the dataset writer of the JAX package's tests
-(tests/test_workers.py::_write_sim), here without any JAX import so the
-card's smoke run can use it.  The loci come from the port's copy of the
-simulator (utils/simulate.py), seeded, so the same dataset is made anew on
-any machine.
+(tests/test_workers.py::_write_sim), and `write_golden` the writer of
+tools/make_golden_data.py, here without any JAX import so the card's smoke
+run can use them.  `GOLDEN_CONFIGS` are the golden suites' datasets and
+flags.  `write_trio_denovo` and `write_phased_snps` make the de novo golden
+suite's trio (tests/test_golden_denovo.py), and `write_denovo_cohort` a
+synthetic STR VCF of many families for the de novo scanners.  The loci
+come from the port's copy of the simulator (utils/simulate.py), seeded, so
+the same dataset is made anew on any machine.
 """
 
 from __future__ import annotations
 
+import os
+import random
+
+import numpy as np
+
 from ..io.bam import BamRecord, BamWriter
+from ..io.bgzf import BgzfWriter
 from ..io.fasta import write_fasta
+from ..io.tabix import TabixBuilder
 from .simulate import simulate_locus
 
 
@@ -74,3 +85,269 @@ REFERENCE_ARGS = ["--min-reads", "15", "--use-unpaired",
 # the same run learning each locus's stutter model (the EM anchor,
 # tests/data/torch_port_ref_em_f64.vcf)
 REFERENCE_EM_ARGS = [a for a in REFERENCE_ARGS if a != "--def-stutter-model"]
+
+
+def write_golden(outdir: str, *, loci: int, samples: int, reads: int,
+                 seed: int = 1234, period: int = 3, ref_units: int = 8,
+                 snp_offset: int = 0, paired: bool = False,
+                 hp_tags: bool = False, realistic: bool = False) -> None:
+    """The dataset tools/make_golden_data.py writes with these options (its
+    flags by the same names): sim.fa, regions.bed, sim.bam and, with
+    `snp_offset`, a phased het SNP that many bp left of each STR in
+    snps.vcf.gz (+ .tbi)."""
+    os.makedirs(outdir, exist_ok=True)
+    contigs, bed_lines, all_reads, snp_lines = [], [], [], []
+    sample_names = None
+    for g in range(loci):
+        locus = simulate_locus(seed=seed + g, n_samples=samples,
+                               reads_per_sample=reads, period=period,
+                               ref_units=ref_units, chrom=f"chrS{g}",
+                               paired=paired,
+                               phased_snp_offset=snp_offset or None,
+                               realism=realistic)
+        sample_names = locus.sample_names
+        if snp_offset:
+            snp = locus.snp
+            gt = "\t".join("0|1" for _ in locus.sample_names)
+            snp_lines.append(f"{locus.chrom}\t{snp['pos'] + 1}\t.\t"
+                             f"{snp['ref']}\t{snp['alt']}\t.\t.\t.\tGT\t{gt}")
+        contigs.append((locus.chrom, locus.chrom_seq))
+        r = locus.region
+        bed_lines.append(
+            f"{r.chrom}\t{r.start + 1}\t{r.stop}\t{r.period}\t"
+            f"{(r.stop - r.start) / r.period:.1f}\t{r.name}")
+        for rd in locus.raw_reads:
+            all_reads.append((g, locus.chrom, rd))
+
+    write_fasta(os.path.join(outdir, "sim.fa"), contigs)
+    with open(os.path.join(outdir, "regions.bed"), "w") as fh:
+        fh.write("\n".join(bed_lines) + "\n")
+
+    header = ("@HD\tVN:1.6\tSO:coordinate\n"
+              + "".join(f"@SQ\tSN:{c}\tLN:{len(s)}\n" for c, s in contigs)
+              + "".join(f"@RG\tID:rg{name}\tSM:{name}\tLB:lib{name}\n"
+                        for name in sample_names))
+    writer = BamWriter(os.path.join(outdir, "sim.bam"),
+                       [c for c, _ in contigs], [len(s) for _, s in contigs],
+                       header)
+    all_reads.sort(key=lambda t: (t[0], t[2]["start"]))
+    for g, _, rd in all_reads:
+        tags = {"RG": ("Z", f"rg{rd['sample']}")}
+        tags.update(rd.get("tags", {}))
+        if hp_tags:
+            tags["HP"] = ("i", rd["hap"])
+        writer.write(BamRecord(
+            name=rd["name"], flag=rd.get("flag", 0x10 if rd["rev"] else 0),
+            ref_id=g, pos=rd["start"], mapq=rd.get("mapq", 60),
+            cigar=rd.get("cigar", [(len(rd["seq"]), "M")]),
+            mate_ref_id=g if "mate_pos" in rd else -1,
+            mate_pos=rd.get("mate_pos", -1), tlen=rd.get("tlen", 0),
+            seq=rd["seq"], qual=rd["quals"], tags=tags))
+    writer.close()
+    if snp_offset:
+        header_lines = (["##fileformat=VCFv4.1"]
+                        + [f"##contig=<ID={c},length={len(s)}>"
+                           for c, s in contigs]
+                        + ['##FORMAT=<ID=GT,Number=1,Type=String,'
+                           'Description="Genotype">',
+                           "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO"
+                           "\tFORMAT\t" + "\t".join(sample_names)])
+        write_bgzipped_vcf(os.path.join(outdir, "snps.vcf.gz"),
+                           header_lines, snp_lines)
+
+
+def write_bgzipped_vcf(path: str, header_lines, records) -> None:
+    """A bgzipped VCF at `path` and its tabix index `path`.tbi, each record
+    indexed over its REF allele (the writers of tools/make_golden_data.py
+    and tests/test_golden_denovo.py)."""
+    w = BgzfWriter(path)
+    tbi = TabixBuilder()
+    w.write(("\n".join(header_lines) + "\n").encode())
+    for line in records:
+        cols = line.split("\t", 4)
+        beg = int(cols[1]) - 1
+        v0 = w.virtual_offset
+        w.write((line + "\n").encode())
+        tbi.add(cols[0], beg, beg + len(cols[3]), v0, w.virtual_offset)
+    w.close()
+    tbi.write(path + ".tbi")
+
+
+# The golden suites' configurations (tests/test_golden_vs_reference.py,
+# tests/test_golden_realistic.py): name -> (write_golden options, genotyper
+# flags; "{d}" stands for the dataset's directory).  `outputs_em` is the EM
+# run with SNP phasing and every --output-* flag, the VCF de novo runs read.
+_COMMON = ("--use-unpaired", "--min-reads", "20", "--def-stutter-model")
+GOLDEN_CONFIGS = {
+    "default": (dict(loci=3, samples=3, reads=40), _COMMON),
+    "snp": (dict(loci=2, samples=3, reads=40, snp_offset=25),
+            _COMMON + ("--snp-vcf", "{d}/snps.vcf.gz")),
+    "em8": (dict(loci=2, samples=8, reads=40),
+            ("--use-unpaired", "--min-reads", "20")),
+    "hp10x": (dict(loci=2, samples=3, reads=40, hp_tags=True),
+              _COMMON + ("--10x-bams",)),
+    "p1": (dict(loci=2, samples=3, reads=40, period=1, ref_units=10),
+           _COMMON),
+    "p4": (dict(loci=2, samples=3, reads=40, period=4, ref_units=10),
+           _COMMON),
+    "paired": (dict(loci=2, samples=3, reads=40, paired=True),
+               ("--min-reads", "15", "--def-stutter-model")),
+    "realistic": (dict(loci=6, samples=3, reads=45, realistic=True,
+                       seed=4242),
+                  ("--use-unpaired", "--min-reads", "15",
+                   "--def-stutter-model")),
+    "deep": (dict(loci=2, samples=3, reads=250, seed=777), _COMMON),
+    "realistic_paired": (dict(loci=4, samples=3, reads=45, paired=True,
+                              realistic=True, seed=9191),
+                         ("--min-reads", "15", "--def-stutter-model")),
+    "outputs_em": (dict(loci=2, samples=3, reads=40, snp_offset=25),
+                   ("--use-unpaired", "--min-reads", "20", "--snp-vcf",
+                    "{d}/snps.vcf.gz", "--output-gls", "--output-pls",
+                    "--output-phased-gls", "--output-filters",
+                    "--output-hap-fields")),
+}
+
+
+def golden_args(name: str, d: str, out: str):
+    """The genotyper's command line for configuration `name` on the dataset
+    in `d`, writing `out` (no --device, --dtype or mode flags)."""
+    return (["--bams", f"{d}/sim.bam", "--fasta", f"{d}/sim.fa",
+             "--regions", f"{d}/regions.bed", "--str-vcf", out, "--silent"]
+            + [f.format(d=d) for f in GOLDEN_CONFIGS[name][1]])
+
+
+def golden_tool_args(name: str):
+    """tools/make_golden_data.py's flags for configuration `name`."""
+    out = []
+    for key, value in GOLDEN_CONFIGS[name][0].items():
+        flag = "--" + key.replace("_", "-")
+        if value is True:
+            out.append(flag)
+        elif value is not False:
+            out += [flag, str(value)]
+    return out
+
+
+# ---------------------------------------------------------------- de novo
+TRIO_SAMPLES = ["MOM", "DAD", "KID"]
+# the genotyper flags of the de novo golden suite's STR VCF
+# (tests/test_golden_denovo.py::_genotype)
+DENOVO_GENOTYPE_ARGS = ["--min-reads", "20", "--use-unpaired",
+                        "--def-stutter-model", "--output-gls",
+                        "--output-phased-gls"]
+
+
+def write_trio_denovo(out: str, n_loci: int = 6):
+    """The de novo golden suite's trio dataset
+    (tests/test_golden_denovo.py::_write_trio_dataset): MOM, DAD and KID
+    at 30 reads each over n_loci loci, and trio.fam.  Returns the loci."""
+    locs = [simulate_locus(seed=7100 + i, n_samples=3, reads_per_sample=30,
+                           period=2 + (i % 3), ref_units=8,
+                           chrom=f"chr{i + 1}", sample_names=TRIO_SAMPLES)
+            for i in range(n_loci)]
+    write_sim(out, locs)
+    with open(f"{out}/trio.fam", "w") as fh:
+        fh.write("FAM1\tKID\tDAD\tMOM\t1\t0\n")
+    return locs
+
+
+def write_phased_snps(out: str, chroms, seed: int = 5) -> str:
+    """300 phased SNPs per chromosome for the trio, the child carrying the
+    mother's first and the father's first haplotype, as snps.vcf.gz (+ .tbi)
+    (tests/test_golden_denovo.py::_write_phased_snps)."""
+    rng = random.Random(seed)
+    header = (["##fileformat=VCFv4.1"]
+              + [f"##contig=<ID={c},length=100000000>" for c in chroms]
+              + ['##FORMAT=<ID=GT,Number=1,Type=String,Description="G">',
+                 "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT"
+                 "\t" + "\t".join(TRIO_SAMPLES)])
+    records = []
+    for c in chroms:
+        pos = 50
+        for _ in range(300):
+            pos += rng.randint(50, 1500)
+            mom = (rng.randint(0, 1), rng.randint(0, 1))
+            dad = (rng.randint(0, 1), rng.randint(0, 1))
+            kid = (mom[0], dad[0])
+            gts = "\t".join(f"{a}|{b}" for a, b in (mom, dad, kid))
+            records.append(f"{c}\t{pos}\t.\tA\tC\t.\t.\t.\tGT\t{gts}")
+    write_bgzipped_vcf(f"{out}/snps.vcf.gz", header, records)
+    return f"{out}/snps.vcf.gz"
+
+
+def write_denovo_cohort(out: str, *, records: int = 1000,
+                        families: int = 100, chroms: int = 10,
+                        seed: int = 2024):
+    """A synthetic cohort for the de novo scanners, modelled on
+    tests/test_denovo.py's random-GL VCF and tests/test_golden_denovo.py's
+    phased SNPs.  `families` nuclear families, trios and quads by turns
+    (cohort.fam); `records` STR records over `chroms` chromosomes, 1 kb
+    apart (str.vcf), with 2-12 alleles (the first 11 records take each
+    count once, the rest are drawn with weight 1/(A-1)^2, so most records
+    have few alleles, as in a real call set) and per sample a phased GT,
+    random GL and PHASEDGL; 300 phased SNPs per chromosome around them
+    (snps.vcf.gz + .tbi), each child carrying one haplotype of each parent,
+    drawn per family and chromosome, so every family's inheritance is
+    inferred.  Returns (fam, str_vcf, snp_vcf) paths."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(out, exist_ok=True)
+    fams = []
+    with open(f"{out}/cohort.fam", "w") as fh:
+        for f in range(families):
+            kids = [f"K{f}a"] + ([f"K{f}b"] if f % 2 else [])
+            for k in kids:
+                fh.write(f"FAM{f}\t{k}\tF{f}\tM{f}\t1\t0\n")
+            fams.append((f"M{f}", f"F{f}", kids))
+    samples = [s for m, d, kids in fams for s in (m, d, *kids)]
+    chrom_names = [f"chr{c + 1}" for c in range(chroms)]
+    per_chrom = -(-records // chroms)
+
+    weights = 1.0 / np.arange(1, 12) ** 2
+    counts = np.concatenate([np.arange(2, 13), rng.choice(
+        np.arange(2, 13), size=max(0, records - 11),
+        p=weights / weights.sum())])[:records]
+    lines = ["##fileformat=VCFv4.1",
+             '##FORMAT=<ID=GT,Number=1,Type=String,Description="G">',
+             '##FORMAT=<ID=GL,Number=G,Type=Float,Description="G">',
+             '##FORMAT=<ID=PHASEDGL,Number=.,Type=Float,Description="G">',
+             "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\t"
+             + "\t".join(samples)]
+    for i, A in enumerate(counts.tolist()):
+        chrom = chrom_names[i // per_chrom]
+        pos = 10000 + 1000 * (i % per_chrom)
+        units = [8] + [8 + d for d in (1, -1, 2, -2, 3, -3, 4, -4, 5, -5, 6)]
+        alleles = ["AC" * u for u in units[:A]]
+        n_gl = A * (A + 1) // 2
+        gt = rng.integers(0, A, (len(samples), 2))
+        gl = rng.integers(-900, 1, (len(samples), n_gl + A * A)) / 100
+        cols = [f"{a}|{b}:" + ",".join(f"{v:.2f}" for v in row[:n_gl]) + ":"
+                + ",".join(f"{v:.2f}" for v in row[n_gl:])
+                for (a, b), row in zip(gt.tolist(), gl.tolist())]
+        bpdiffs = ",".join(str(2 * (u - 8)) for u in units[1:A])
+        lines.append(f"{chrom}\t{pos}\t.\t{alleles[0]}\t"
+                     f"{','.join(alleles[1:])}\t.\t.\tBPDIFFS={bpdiffs};"
+                     f"START={pos};END={pos + 15};PERIOD=2\tGT:GL:PHASEDGL\t"
+                     + "\t".join(cols))
+    with open(f"{out}/str.vcf", "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+
+    header = (["##fileformat=VCFv4.1"]
+              + [f"##contig=<ID={c},length=100000000>" for c in chrom_names]
+              + ['##FORMAT=<ID=GT,Number=1,Type=String,Description="G">',
+                 "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\t"
+                 + "\t".join(samples)])
+    snps = []
+    for chrom in chrom_names:
+        # per family and child: the mother's and the father's haplotype
+        inherit = [rng.integers(0, 2, (len(kids), 2)) for _, _, kids in fams]
+        par = rng.integers(0, 2, (300, len(fams), 2, 2))  # [snp, fam, m/f, hap]
+        pos = np.cumsum(rng.integers(50, 1501, 300)) + 50
+        for p, gt in zip(pos.tolist(), par.tolist()):
+            cols = []
+            for (mom, dad), hs in zip(gt, inherit):
+                cols += [f"{mom[0]}|{mom[1]}", f"{dad[0]}|{dad[1]}"]
+                cols += [f"{mom[hm]}|{dad[hd]}" for hm, hd in hs.tolist()]
+            snps.append(f"{chrom}\t{p}\t.\tA\tC\t.\t.\t.\tGT\t"
+                        + "\t".join(cols))
+    write_bgzipped_vcf(f"{out}/snps.vcf.gz", header, snps)
+    return f"{out}/cohort.fam", f"{out}/str.vcf", f"{out}/snps.vcf.gz"

@@ -72,8 +72,10 @@ def test_the_scan_sees_lazy_imports(tmp_path):
 @pytest.mark.parametrize("modules", [
     ["hipstr_tpu_torch.cli", "hipstr_tpu_torch.pipeline.sequential",
      "hipstr_tpu_torch.parallel.executor", "hipstr_tpu_torch.utils.simdata",
-     "hipstr_tpu_torch.ops.em_batched", "hipstr_tpu_torch.parallel.workers"]],
-    ids=["entry-points"])
+     "hipstr_tpu_torch.ops.em_batched", "hipstr_tpu_torch.parallel.workers"],
+    ["hipstr_tpu_torch.denovo_finder", "hipstr_tpu_torch.phasing_checker",
+     "hipstr_tpu_torch.scripts.annotate_denovo"]],
+    ids=["entry-points", "denovo-entry-points"])
 def test_importing_the_port_loads_no_jax(modules):
     script = ("import importlib, sys\n"
               f"for m in {modules!r}:\n"
