@@ -64,7 +64,25 @@ Phases (any failure raises and exits non-zero):
      card (records/s, jobs, dispatches, every dispatch within
      denovo.likelihoods.DISPATCH_BYTES), its first 100 records also on the
      host path (`--device cpu --device-batch 0`, in two processes beside
-     the card's runs) and equal.
+     the card's runs) and equal;
+ 12. the rest of the CLI: (a) every CLI mode of the JAX tests
+     (utils.simdata.MODE_CONFIGS: haploid, the stutter-model round trip,
+     --skip-genotyping with pass/filt BAMs, --sample-list, --viz-out, an
+     unspannable locus, --bam-samps, --ref-vcf, --locus-shard, CRAM) in
+     float64 batched and sequential and float32 batched: float64 VCF bodies
+     byte-identical to tests/data/torch_port_mode_<name>_f64.vcf and every
+     other output to tests/data/torch_port_modes_f64.json (a models file
+     learned by the device EM may differ in a printed digit only within
+     rtol 1e-8 of the JAX host EM's), float32 within the drift bands, each
+     mode's launches counted from 0; (b) on the reference dataset, one
+     process without and with `--profile`, and `--workers 2` (both
+     children on the card, each profiled): the bgzipped merge equal to
+     tests/data/torch_port_ref_f64.vcf, its .tbi answering a query, no
+     shard file left, every process's trace holding K1 and K2 events;
+     (c) `--distributed` with two gloo ranks on the one card: the same
+     body, the summed summary on both ranks, no shard file left; (d)
+     `--profile` on the slice, batched and sequential: the VCF equal to
+     phases 4 and 5's, the trace holding K1 + K2 or K1 + K4 events.
 
 The in-process runs of phases 4, 7(a), 8 and 9 pass --host-workers 1, so
 their numbers stay comparable whatever the machine's core count.  After
@@ -78,6 +96,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -126,6 +145,8 @@ EM_POOL_WORKERS = 3
 EM_BATCH = 32        # the slice's --batch-loci: the EM's wave size
 EM_TOL = (1e-8, 1e-10)   # card f64 EM vs host EM (tests/test_em_batched.py)
 POOL_WATCHDOG_S = 300    # a pooled run of the slice takes well under this
+SCALE_WATCHDOG_S = 300   # phase 12's --workers and --distributed commands
+MODES_JSON = os.path.join(ROOT, "tests", "data", "torch_port_modes_f64.json")
 # kernel -> (source, the TPU kernel it replaces); each is checked in phase 3
 # and timed at its path's real launch shapes, beside its bound, in phase 9
 SOURCES = {
@@ -536,14 +557,21 @@ def phase_kernels(device, tmp):
 
 
 # ---------------------------------------------------------------- phase 4
+def slice_args(tmp, mode, device_name="cuda"):
+    """The slice's float32 run with the default model: `mode` is
+    "batched" (in-process, --batch-loci 32) or "sequential"."""
+    flags = (["--batch-loci", "32", "--host-workers", "1"]
+             if mode == "batched" else ["--batch-loci", "0"])
+    return ["--bams", f"{tmp}/sim.bam", "--fasta", f"{tmp}/sim.fa",
+            "--regions", f"{tmp}/regions.bed", "--min-reads", "15",
+            "--use-unpaired", "--def-stutter-model", *flags, "--dtype",
+            "float32", "--device", device_name, "--silent"]
+
+
 def phase_slice(tmp, device_name="cuda"):
     import torch
     from hipstr_tpu_torch import cli, kernels
-    args = ["--bams", f"{tmp}/sim.bam", "--fasta", f"{tmp}/sim.fa",
-            "--regions", f"{tmp}/regions.bed", "--min-reads", "15",
-            "--use-unpaired", "--def-stutter-model", "--batch-loci", "32",
-            "--host-workers", "1", "--dtype", "float32", "--device",
-            device_name, "--silent"]
+    args = slice_args(tmp, "batched", device_name)
     # warm the CUDA context and allocator on a few loci (not counted)
     cli.run(args + ["--str-vcf", f"{tmp}/warm.vcf", "--max-regions", "4"])
     torch.cuda.synchronize()
@@ -588,10 +616,7 @@ def phase_sequential(tmp, device_name="cuda"):
     import torch
     from hipstr_tpu_torch import cli, kernels
     from hipstr_tpu_torch.pipeline import hap_aligner
-    args = ["--bams", f"{tmp}/sim.bam", "--fasta", f"{tmp}/sim.fa",
-            "--regions", f"{tmp}/regions.bed", "--min-reads", "15",
-            "--use-unpaired", "--def-stutter-model", "--batch-loci", "0",
-            "--dtype", "float32", "--device", device_name, "--silent"]
+    args = slice_args(tmp, "sequential", device_name)
     cli.run(args + ["--str-vcf", f"{tmp}/seq_warm.vcf", "--max-regions",
                     "4"])
     torch.cuda.synchronize()
@@ -874,22 +899,22 @@ def phase_em(tmp):
     return dict(in_process=a, pooled=b)
 
 
-def child_import_s(n: int) -> dict:
+def child_import_s(n: int, module: str = "hipstr_tpu_torch.parallel.workers",
+                   tag: str = "EM pooled") -> dict:
     """Wall seconds for n fresh interpreters started together, as a pool's
-    workers are, to import nothing and to import the worker module (torch
-    and the port): the part of the workers' start that is not the first
-    locus."""
+    workers (or --workers children) are, to import nothing and to import
+    `module` (torch and the port): the part of their start that is not
+    the first locus."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=ROOT)
     out = {}
-    for label, code in (("bare", "pass"), ("workers module",
-                        "import hipstr_tpu_torch.parallel.workers")):
+    for label, code in (("bare", "pass"), (module, f"import {module}")):
         t0 = time.perf_counter()
         procs = [subprocess.Popen([sys.executable, "-c", code], env=env)
                  for _ in range(n)]
         if any(p.wait() for p in procs):
             raise AssertionError(f"a child importing {label!r} failed")
         out[label] = time.perf_counter() - t0
-    log(f"EM pooled: {n} fresh interpreters started together: "
+    log(f"{tag}: {n} fresh interpreters started together: "
         + ", ".join(f"{k} {v:.3f} s" for k, v in out.items()))
     return out
 
@@ -1071,7 +1096,11 @@ def hold_to_reference(label: str, out: str, ref: str,
     records, each byte-identical or within the drift bands (each record
     that differs is logged when `show`).  Returns the byte-identical
     count."""
-    got, want = vcf_body(out), vcf_body(ref)
+    return hold_bodies(label, vcf_body(out), vcf_body(ref), show)
+
+
+def hold_bodies(label: str, got, want, show: bool = True) -> int:
+    """hold_to_reference on VCF bodies (lists of record lines)."""
     if len(got) != len(want):
         raise AssertionError(f"{label} VCF: {len(got)} records, reference "
                              f"{len(want)}")
@@ -1619,6 +1648,313 @@ def phase_denovo_cohort(tmp, card):
     return out
 
 
+# --------------------------------------------------------------- phase 12
+def trace_kernels(path: str, names) -> dict:
+    """Kernel events of a torch.profiler trace, by kernel: events of
+    category "kernel" whose name holds `<name>_kernel` (the __global__
+    names of csrc/*.cu)."""
+    import re
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    pats = {n: re.compile(rf"\b{n}_kernel\b") for n in names}
+    return {n: sum(1 for e in events if e.get("cat") == "kernel"
+                   and pat.search(e.get("name", ""))) for n, pat in pats.items()}
+
+
+def half_unit(token: str) -> float:
+    """Half a unit in the last digit of a value printed with %g (six
+    significant digits)."""
+    v = abs(float(token))
+    return 0.5 * 10.0 ** (math.floor(math.log10(v)) - 5) if v else 0.0
+
+
+def hold_models(label: str, got: str, want: str, learned: dict) -> None:
+    """A stutter-model file learned on the card against the JAX host EM's
+    (both as text): equal, or where a printed digit differs, both values
+    printed and the card's unrounded value within rtol 1e-8 (the EM parity
+    rule) of the anchor's, beyond its printed rounding."""
+    if got == want:
+        return
+    def cols(text):
+        return {(t[0], int(t[1]), int(t[2])): t[3:9]
+                for t in (l.split() for l in text.splitlines() if l)}
+    g, w = cols(got), cols(want)
+    if g.keys() != w.keys():
+        raise AssertionError(f"{label}: models for {sorted(g)}, anchor "
+                             f"{sorted(w)}")
+    names = ("in_geom", "in_down", "in_up", "out_geom", "out_down", "out_up")
+    for key, want_toks in w.items():
+        for name, gt, wt in zip(names, g[key], want_toks):
+            if gt == wt:
+                continue
+            exact = getattr(learned[key], name)
+            log(f"{label} {key} {name}: card {gt} ({exact!r}), JAX host EM "
+                f"{wt}")
+            if abs(exact - float(wt)) > EM_TOL[0] * abs(float(wt)) + \
+                    half_unit(wt):
+                raise AssertionError(f"{label}: {name} of {key} outside "
+                                     "rtol 1e-8")
+
+
+def check_mode_launches(label, launches, batched, genotyped) -> None:
+    """K1 + K2 (batched) or K1 + K4 (sequential) launched when a locus was
+    genotyped, and no other kernel."""
+    used, unused = (("emission", "segment"), ("flank_scan", "segment_scan")) \
+        if batched else (("emission", "flank_scan"), ("segment",
+                                                      "segment_scan"))
+    if any(launches[k] for k in unused) or (
+            genotyped and not all(launches[k] for k in used)):
+        raise AssertionError(f"{label}: launches {launches}")
+
+
+def phase_cli_modes(tmp, device_name="cuda"):
+    """(a) every CLI mode of the JAX tests (utils.simdata.MODE_CONFIGS) on
+    the card, float64 batched and sequential and float32 batched, against
+    its float64 anchors; each mode's launches counted from 0."""
+    import torch
+    from hipstr_tpu_torch import cli, kernels
+    from hipstr_tpu_torch.utils.simdata import (MODE_CONFIGS, mode_products,
+                                                mode_runs, mode_vcf_body,
+                                                product_digest)
+    with open(MODES_JSON) as fh:
+        anchors = json.load(fh)
+    out = {}
+    for name, mode in MODE_CONFIGS.items():
+        d = f"{tmp}/{name}"
+        os.makedirs(d)
+        mode.write(d)
+        anchor = os.path.join(ROOT, "tests", "data",
+                              f"torch_port_mode_{name}_f64.vcf")
+        want = vcf_body(anchor) if os.path.exists(anchor) else []
+        for label, dtype, extra in GOLDEN_RUNS:
+            o = f"{d}/{label.replace(' ', '_')}"
+            os.makedirs(o)
+            batched = "--batch-loci" not in extra
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            walls, learned, genotyped = [], {}, 0
+            for run_label, args in mode_runs(name, d, o):
+                t0 = time.perf_counter()
+                pipeline, counters = cli.run(
+                    args + ["--dtype", dtype, "--device", device_name]
+                    + extra)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                if counters.genotype_fail:
+                    raise AssertionError(f"mode {name} {label} {run_label}: "
+                                         f"fail={counters.genotype_fail}")
+                genotyped += counters.genotype_success
+                if "--stutter-out" in args:
+                    learned = pipeline._stutter_out
+                    if batched and not pipeline.last_run_stats["em_waves"]:
+                        raise AssertionError(f"mode {name} {label}: no "
+                                             "device EM wave")
+            launches = dict(kernels.LAUNCHES)
+            check_mode_launches(f"mode {name} {label}", launches, batched,
+                                genotyped)
+            got = mode_vcf_body(name, o)
+            products = {k: product_digest(k, v)
+                        for k, v in mode_products(name, d, o).items()}
+            if products.keys() != anchors[name].keys():
+                raise AssertionError(f"mode {name} {label}: outputs "
+                                     f"{sorted(products)}")
+            same_products = [k for k in products
+                             if products[k]["sha256"] ==
+                             anchors[name][k]["sha256"]]
+            if dtype == "float64":
+                if got != want:
+                    hold_bodies(f"mode {name} {label}", got, want)
+                    raise AssertionError(f"mode {name} {label}: VCF bodies "
+                                         "differ from the f64 anchor")
+                for k in products:
+                    if k.endswith(".txt"):
+                        hold_models(f"mode {name} {label} {k}",
+                                    products[k]["text"],
+                                    anchors[name][k]["text"], learned)
+                    elif k not in same_products:
+                        raise AssertionError(f"mode {name} {label}: {k} "
+                                             "differs from the f64 anchor")
+                same = len(got)
+            else:
+                same = hold_bodies(f"mode {name} {label}", got, want,
+                                   show=False)
+            log(f"mode {name} {label}: {len(got)} records, {same} "
+                f"byte-identical to the f64 anchor, outputs identical "
+                f"{sorted(same_products)} of {sorted(products)}, run walls "
+                + ", ".join(f"{w:.3f}" for w in walls)
+                + f" s, launches {launches}")
+            out[f"{name} {label}"] = dict(
+                records=len(got), byte_identical=same, run_walls_s=walls,
+                outputs_identical=len(same_products),
+                outputs=len(products), launches=launches)
+        check_no_jax()
+    return out
+
+
+def port_command(tmp, out, extra, device_name="cuda"):
+    """`python -m hipstr_tpu_torch.cli` on the reference dataset in float64
+    on the card."""
+    from hipstr_tpu_torch.utils.simdata import REFERENCE_ARGS
+    return [sys.executable, "-m", "hipstr_tpu_torch.cli", "--bams",
+            f"{tmp}/sim.bam", "--fasta", f"{tmp}/sim.fa", "--regions",
+            f"{tmp}/regions.bed", "--str-vcf", out, "--dtype", "float64",
+            "--device", device_name] + REFERENCE_ARGS + extra
+
+
+def timed_run(cmd, label):
+    """Run `cmd` under the scale-out watchdog; (wall s, stderr)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+                          capture_output=True, text=True,
+                          timeout=SCALE_WATCHDOG_S)
+    wall = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError(f"{label} exited {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    return wall, proc.stderr
+
+
+def phase_workers(tmp, device_name="cuda"):
+    """(b) --workers 2 on the card against one process, both profiled,
+    merged into a bgzipped VCF with its tabix index; one process without
+    the profiler gives the profiler's cost."""
+    from hipstr_tpu_torch.io.bgzf import BgzfReader
+    from hipstr_tpu_torch.io.vcf_read import VCFReader
+    from hipstr_tpu_torch.utils.simdata import reference_loci, write_sim
+    locs = reference_loci()
+    write_sim(tmp, locs)
+    want = vcf_body(REF_VCF)
+    out = {}
+    for label, extra, traced in (
+            ("one process, no profiler", [], False),
+            ("one process", [], True),
+            ("--workers 2", ["--workers", "2"], True)):
+        tag = f"{label.split()[-1]}{int(traced)}"
+        vcf, trace = f"{tmp}/w{tag}.vcf.gz", f"{tmp}/trace_w{tag}"
+        wall, _ = timed_run(port_command(tmp, vcf, extra + ["--silent"] + (
+            ["--profile", trace] if traced else []), device_name), label)
+        got = [l + "\n" for l in BgzfReader(vcf).read_all().decode()
+               .splitlines() if l and not l.startswith("#")]
+        if got != want:
+            raise AssertionError(f"{label}: merged body differs from "
+                                 "tests/data/torch_port_ref_f64.vcf")
+        l0 = locs[0]
+        hits = list(VCFReader(vcf).query(l0.chrom, l0.region.start - 5,
+                                         l0.region.stop + 5))
+        if len(hits) != 1:
+            raise AssertionError(f"{label}: tabix query gave {len(hits)}")
+        if not traced:
+            log(f"{label} on the card: {len(got)} records equal to the f64 "
+                f"anchor, .tbi query 1 hit, wall {wall:.3f} s")
+            out[label] = dict(wall_s=wall)
+            continue
+        traces = sorted(os.listdir(trace))
+        counts = [trace_kernels(f"{trace}/{t}", ("emission", "segment"))
+                  for t in traces]
+        sizes = [os.path.getsize(f"{trace}/{t}") for t in traces]
+        if len(traces) != (2 if extra else 1) or not all(
+                c["emission"] and c["segment"] for c in counts):
+            raise AssertionError(f"{label}: traces {traces}, kernels {counts}")
+        log(f"{label} on the card: {len(got)} records equal to the f64 "
+            f"anchor, .tbi query 1 hit, wall {wall:.3f} s; traces "
+            f"{sizes} bytes, K1/K2 events per process {counts}")
+        out[label] = dict(wall_s=wall, trace_bytes=sizes,
+                          trace_kernels=counts)
+    leftovers = [f for f in os.listdir(tmp) if ".shard" in f]
+    if leftovers:
+        raise AssertionError(f"--workers left {leftovers}")
+    out["child_import_s"] = child_import_s(2, "hipstr_tpu_torch.cli",
+                                           "--workers 2")
+    check_no_jax()
+    return out
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_distributed(tmp, device_name="cuda"):
+    """(c) --distributed: two gloo ranks on the one card."""
+    want = vcf_body(REF_VCF)
+    vcf = f"{tmp}/dist.vcf"
+    port = free_port()
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(port_command(tmp, vcf, [
+        "--quiet", "--host-workers", "1", "--distributed", "--coordinator",
+        f"127.0.0.1:{port}", "--num-processes", "2", "--process-id",
+        str(rank)], device_name), cwd=ROOT, env=env, stderr=subprocess.PIPE,
+        text=True)
+        for rank in range(2)]
+    try:
+        errs = [p.communicate(timeout=SCALE_WATCHDOG_S)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    if any(p.returncode for p in procs):
+        raise AssertionError("--distributed: a rank failed:\n"
+                             + "\n".join(e[-3000:] for e in errs))
+    for rank, err in enumerate(errs):
+        if f"[{rank}/2] global Summary: success={len(want)} fail=0" not in err:
+            raise AssertionError(f"rank {rank}: no global summary:\n"
+                                 f"{err[-3000:]}")
+    if vcf_body(vcf) != want:
+        raise AssertionError("--distributed: merged body differs from "
+                             "tests/data/torch_port_ref_f64.vcf")
+    leftovers = [f for f in os.listdir(tmp) if ".dshard" in f]
+    if leftovers:
+        raise AssertionError(f"--distributed left {leftovers}")
+    log(f"--distributed, 2 gloo ranks on one card: {len(want)} records "
+        f"equal to the f64 anchor, global summary on both ranks, wall "
+        f"{wall:.3f} s")
+    check_no_jax()
+    return dict(wall_s=wall)
+
+
+def phase_profile(tmp, device_name="cuda"):
+    """(d) --profile in-process on the slice, batched and sequential: each
+    VCF equal to the same run's without the profiler (phases 4 and 5), the
+    trace holding each kernel the run launched."""
+    import torch
+    from hipstr_tpu_torch import cli, kernels
+    out = {}
+    for mode, plain, names in (("batched", "slice.vcf",
+                                ("emission", "segment")),
+                               ("sequential", "seq.vcf",
+                                ("emission", "flank_scan"))):
+        vcf, trace = f"{tmp}/prof_{mode}.vcf", f"{tmp}/trace_{mode}"
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        cli.run(slice_args(tmp, mode, device_name) + [
+            "--str-vcf", vcf, "--profile", trace])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {n: kernels.LAUNCHES[n] for n in names}
+        if vcf_body(vcf) != vcf_body(f"{tmp}/{plain}"):
+            raise AssertionError(f"--profile {mode}: VCF differs from the "
+                                 "run without the profiler")
+        traces = os.listdir(trace)
+        size = os.path.getsize(f"{trace}/{traces[0]}")
+        counts = trace_kernels(f"{trace}/{traces[0]}", names)
+        if len(traces) != 1 or not all(counts.values()):
+            raise AssertionError(f"--profile {mode}: traces {traces}, "
+                                 f"kernel events {counts}")
+        log(f"--profile {mode}: {SLICE_LOCI} loci, VCF equal to the run "
+            f"without the profiler, wall {wall:.3f} s, trace {size} bytes, "
+            f"kernel events {counts} for launches {launches}")
+        out[mode] = dict(wall_s=wall, trace_bytes=size, trace_kernels=counts,
+                         launches=launches)
+    check_no_jax()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1631,7 +1967,8 @@ def main() -> int:
     ptxas = phase_build()
     check_no_jax()
     from hipstr_tpu_torch.device import resolve_device
-    from hipstr_tpu_torch.utils.simdata import trio_loci, write_sim
+    from hipstr_tpu_torch.utils.simdata import (reference_loci, trio_loci,
+                                                write_sim)
     device = resolve_device("cuda")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         os.makedirs(f"{tmp}/slice")
@@ -1665,9 +2002,20 @@ def main() -> int:
         denovo = dict(chain=phase_denovo_chain(f"{tmp}/denovo"),
                       cohort=phase_denovo_cohort(f"{tmp}/cohort", card))
         log(f"phase 11 (de novo) took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        for sub in ("modes", "workers", "dist"):
+            os.makedirs(f"{tmp}/{sub}")
+        scale = dict(cli_modes=phase_cli_modes(f"{tmp}/modes"))
+        log(f"phase 12a (CLI modes) took {time.perf_counter() - t0:.1f} s")
+        scale["workers"] = phase_workers(f"{tmp}/workers")
+        write_sim(f"{tmp}/dist", reference_loci())
+        scale["distributed"] = phase_distributed(f"{tmp}/dist")
+        scale["profile"] = phase_profile(f"{tmp}/slice")
+        log(f"phase 12 (CLI modes, scale-out, profiler) took "
+            f"{time.perf_counter() - t0:.1f} s")
     log(json.dumps({"slice": slice_stats, "sequential": seq_stats,
                     "modes": mode_stats, "em": em_stats, "golden": golden,
-                    "denovo": denovo, "card": card,
+                    "denovo": denovo, "scale": scale, "card": card,
                     "ptxas": {k: ptxas[k] for k in ("flank_scan",
                                                     "segment_scan")}}))
     launches.update(flank_scan=seq_launches["flank_scan"],

@@ -1,26 +1,33 @@
 """hipstr-tpu-torch command line: `python -m hipstr_tpu_torch.cli`.
 
 `build_parser` is a copy of the JAX package's flag table
-(hipstr_tpu/cli.py::build_parser), every flag as it is there, plus
+(hipstr_tpu/cli.py::build_parser), every flag as it is there (the help of
+the options that named JAX says what the port does), plus
 `--device cuda|cpu` (default cuda; `cuda` without a visible card is an
-error).  The batched run (`--batch-loci N`, N > 0) in-process or with the
-host worker pool (`--host-workers`), and the sequential run (`--batch-loci
-0`) are ported, each with a stutter model or learning one: on the card the
-batched runs learn each wave's models together (the device EM), elsewhere
-each locus runs the host EM.  The options whose paths are not ported yet
-stop with a "not yet ported" error and a non-zero exit rather than fall
-back.
+error).  Every path of the JAX CLI runs here: the batched run
+(`--batch-loci N`, N > 0) in-process or with the host worker pool
+(`--host-workers`), the sequential run (`--batch-loci 0`), each with a
+stutter model or learning one (on the card the batched runs learn each
+wave's models together, the device EM; elsewhere each locus runs the host
+EM); `--workers N` (child processes over locus shards, merged), with
+`--distributed` (ranks of a torch.distributed gloo group, see
+parallel/distributed.py) and `--profile DIR` (torch.profiler).  Only
+`--platform` is refused, in favour of `--device`.  Nothing falls back: a
+failed kernel, child, rank or trace ends the run with a non-zero exit.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import os
+import subprocess
 import sys
 
-from .device import resolve
+from .device import resolve, resolve_device
 from .models.stutter import StutterModel
+from .parallel import distributed
 from .pipeline.processor import GenotyperPipeline, Logger, PipelineOptions
 from .pipeline.vcf_record import OutputConfig
 
@@ -104,9 +111,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--max-regions", type=int, default=1000000000)
     ap.add_argument("--workers", type=int, default=1,
                     help="Run N worker processes over locus shards and merge "
-                         "their outputs (host-parallel scale-out; workers "
-                         "default to the CPU backend unless --platform is "
-                         "given). Incompatible with --pass-bam/--filt-bam.")
+                         "their outputs (each on this run's --device and "
+                         "in-process unless --host-workers is given; with "
+                         "n > 1 visible cards worker i takes card i mod n). "
+                         "Incompatible with --pass-bam/--filt-bam.")
     ap.add_argument("--host-workers", type=int, default=-1,
                     help="Run per-locus host phases (decode, filters, EM, "
                          "adaptive loop, VCF assembly) in N worker processes "
@@ -118,16 +126,17 @@ def build_parser() -> argparse.ArgumentParser:
                          "backends when spare cores exist (outputs are "
                          "byte-identical either way); 1 = in-process.")
     ap.add_argument("--distributed", action="store_true",
-                    help="Multi-host data parallelism via jax.distributed: "
-                         "every process genotypes its share of loci "
-                         "(BED/FASTA replicated, loci sharded by process "
-                         "index), counters are reduced across hosts, and "
-                         "process 0 merges the shard VCFs. On TPU pods the "
-                         "coordinator is autodetected; elsewhere pass "
-                         "--coordinator/--num-processes/--process-id.")
+                    help="Data parallelism over processes via "
+                         "torch.distributed (gloo): every rank genotypes its "
+                         "share of loci (BED/FASTA replicated, loci sharded "
+                         "by rank) on card local_rank mod n, counters are "
+                         "summed over the ranks, and rank 0 merges the shard "
+                         "outputs. Pass --coordinator/--num-processes/"
+                         "--process-id, or run under torchrun (env://).")
     ap.add_argument("--coordinator", default="",
-                    help="host:port of the jax.distributed coordinator "
-                         "(process 0); empty = autodetect (TPU pods)")
+                    help="host:port of the process group's rendezvous "
+                         "(rank 0 listens there); empty = the env:// "
+                         "variables torchrun sets")
     ap.add_argument("--num-processes", type=int, default=0,
                     help="Total process count for --distributed when the "
                          "coordinator is given explicitly")
@@ -136,8 +145,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "coordinator is given explicitly")
     ap.add_argument("--quiet", action="store_true")
     ap.add_argument("--profile", metavar="DIR",
-                    help="Capture a jax.profiler device/host trace of the "
-                         "run into DIR (view with TensorBoard or Perfetto); "
+                    help="Capture a torch.profiler host (and, on cuda, "
+                         "device) trace of the run into DIR, one file per "
+                         "process (view with Perfetto or TensorBoard); "
                          "the per-phase host timing table always prints at "
                          "exit (reference's per-locus timers: "
                          "src/genotyper_bam_processor.cpp:254-276)")
@@ -153,17 +163,19 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def not_ported(args) -> str:
-    """The first requested option whose path is not ported, or ''."""
-    if args.workers > 1:
-        return "--workers"
-    if args.distributed:
-        return "--distributed"
-    if args.profile:
-        return "--profile"
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+class UsageError(Exception):
+    """A command line the port refuses; main() prints it and exits 1."""
+
+
+def refuse_unported(args) -> None:
+    """--platform, the JAX CLI's backend switch, is the one option the
+    port refuses."""
     if args.platform:
-        return "--platform (use --device)"
-    return ""
+        raise UsageError("--platform (use --device) is not yet ported to "
+                         "hipstr_tpu_torch")
 
 
 def resolve_host_workers(n: int, device, n_cores: int) -> int:
@@ -177,19 +189,198 @@ def resolve_host_workers(n: int, device, n_cores: int) -> int:
     return 1
 
 
-class UsageError(Exception):
-    """A command line the port refuses; main() prints it and exits 1."""
+# ------------------------------------------------------------- --workers N
+def strip_shard_options(argv):
+    """`argv` without --workers and the per-shard outputs (--str-vcf,
+    --stutter-out, --viz-out, --locus-shard), with their values."""
+    out, i = [], 0
+    while i < len(argv):
+        tok = argv[i]
+        if tok.split("=", 1)[0] in ("--workers", "--str-vcf", "--stutter-out",
+                                    "--viz-out", "--locus-shard"):
+            i += 1 if "=" in tok else 2
+            continue
+        out.append(tok)
+        i += 1
+    return out
 
 
+def visible_cards(device_name: str):
+    """The card ids children take in turn, or [] when they share what the
+    parent sees (the CPU, or one card).  Counting the cards creates no CUDA
+    context in this process."""
+    if device_name != "cuda":
+        return []
+    resolve_device(device_name)          # raises without a card
+    import torch
+    n = torch.cuda.device_count()
+    if n < 2:
+        return []
+    env = os.environ.get("CUDA_VISIBLE_DEVICES", "")
+    ids = [x.strip() for x in env.split(",") if x.strip()] if env else []
+    return (ids or [str(k) for k in range(n)])[:n]
+
+
+def worker_commands(args, argv):
+    """[(command, environment, (vcf, models, viz) shard paths)] of the
+    `--workers` children: `python -m hipstr_tpu_torch.cli` on locus shard
+    i/N with this run's --device and --host-workers 1 (a --host-workers on
+    the command line comes later and wins), card i mod n of n > 1."""
+    n = args.workers
+    base = strip_shard_options(list(argv if argv is not None
+                                     else sys.argv[1:]))
+    cards = visible_cards(args.device)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [ROOT] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    out = []
+    for i in range(n):
+        cmd = [sys.executable, "-m", "hipstr_tpu_torch.cli", "--device",
+               args.device, "--host-workers", "1", *base, "--locus-shard",
+               f"{i}/{n}"]
+        paths = tuple(f"{p}.shard{i}" if p else None for p in (
+            args.str_vcf, args.stutter_out, args.viz_out))
+        for opt, p in zip(("--str-vcf", "--stutter-out", "--viz-out"),
+                          paths):
+            if p:
+                cmd += [opt, p]
+        child_env = dict(env)
+        if cards:
+            child_env["CUDA_VISIBLE_DEVICES"] = cards[i % len(cards)]
+        out.append((cmd, child_env, paths))
+    return out
+
+
+def run_workers(args, argv) -> int:
+    """--workers N: N children of this CLI over locus shards, their outputs
+    merged (hipstr_tpu/cli.py::_run_workers).  A child that fails fails the
+    run: nothing is merged and the exit code is 1."""
+    refuse_unported(args)
+    if args.pass_bam or args.filt_bam:
+        raise UsageError("--workers is incompatible with "
+                         "--pass-bam/--filt-bam")
+    children = worker_commands(args, argv)
+    procs = [subprocess.Popen(cmd, env=env) for cmd, env, _ in children]
+    codes = [p.wait() for p in procs]
+    failed = [(i, rc) for i, rc in enumerate(codes) if rc]
+    if failed:
+        print(f"ERROR: --workers children failed (child, exit code): "
+              f"{failed}; no outputs merged", file=sys.stderr)
+        return 1
+    merge_shard_outputs(args.str_vcf, args.stutter_out, args.viz_out,
+                        [paths for _, _, paths in children])
+    return 0
+
+
+def merge_shard_outputs(str_vcf, stutter_out, viz_out, shard_paths) -> None:
+    """Merge per-shard outputs (VCF re-sorted with header from shard 0,
+    stutter-model files unioned, viz rows re-sorted); shards deleted
+    (hipstr_tpu/cli.py::merge_shard_outputs)."""
+    from .io.bgzf import BgzfReader, BgzfWriter
+    if str_vcf:
+        from .io.vcf_write import VCFWriter
+
+        def read_shard(path):
+            if path.endswith(".gz"):
+                text = BgzfReader(path).read_all().decode()
+            else:
+                text = open(path).read()
+            lines = text.splitlines()
+            return ([l for l in lines if l.startswith("#")],
+                    [l for l in lines if l and not l.startswith("#")])
+
+        header0, all_recs = read_shard(shard_paths[0][0])
+        for sv, _, _ in shard_paths[1:]:
+            all_recs.extend(read_shard(sv)[1])
+        writer = VCFWriter(str_vcf, "\n".join(header0) + "\n")
+        for line in sorted(all_recs,
+                           key=lambda l: (l.split("\t", 2)[0],
+                                          int(l.split("\t", 2)[1]))):
+            cols = line.split("\t", 2)
+            writer.add_vcf_record(cols[0], int(cols[1]), line)
+        writer.close()
+    if stutter_out:
+        from .models.stutter import read_stutter_models, write_stutter_models
+        merged = {}
+        for _, so, _ in shard_paths:
+            with open(so) as fh:
+                merged.update(read_stutter_models(fh))
+        with open(stutter_out, "w") as fh:
+            write_stutter_models(merged, fh)
+    if viz_out:
+        lines = []
+        for _, _, vz in shard_paths:
+            lines.extend(BgzfReader(vz).read_all().decode().splitlines())
+        lines.sort(key=lambda l: (l.split("\t", 2)[0],
+                                  int(l.split("\t", 2)[1])))
+        w = BgzfWriter(viz_out)
+        for line in lines:
+            w.write((line + "\n").encode())
+        w.close()
+    for group in shard_paths:
+        for pth in group:
+            for f in (pth, pth and pth + ".tbi"):
+                if f and os.path.exists(f):
+                    os.remove(f)
+
+
+# --------------------------------------------------------------- --profile
+@contextlib.contextmanager
+def profiling(trace_dir, device, logger):
+    """torch.profiler over the block (CPU, and CUDA on the card), its trace
+    written into `trace_dir` by tensorboard_trace_handler (a file named by
+    host and pid, so processes sharing the directory keep their own).  A
+    trace that cannot be written raises."""
+    if not trace_dir:
+        yield
+        return
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(trace_dir)):
+        yield
+    logger.log(f"torch profiler trace written to {trace_dir}")
+
+
+# ------------------------------------------------------------------- run
 def run(argv=None):
     """Parse `argv` and run the pooled, batched or (`--batch-loci 0`)
-    sequential pipeline; returns (pipeline, counters).  Raises UsageError
-    for a refused command line; device and kernel errors propagate."""
+    sequential pipeline, as one rank of a process group with
+    `--distributed`; returns (pipeline, this process's counters).  Raises
+    UsageError for a refused command line; device and kernel errors
+    propagate."""
     args = build_parser().parse_args(argv)
-    missing = not_ported(args)
-    if missing:
-        raise UsageError(f"{missing} is not yet ported to hipstr_tpu_torch")
+    refuse_unported(args)
+    if not args.distributed:
+        return run_args(args)
+    if args.locus_shard:
+        raise UsageError("--distributed assigns locus shards itself; drop "
+                         "--locus-shard")
+    try:
+        rank = distributed.init(args.coordinator, args.num_processes,
+                                args.process_id)
+    except distributed.RendezvousError as exc:
+        raise UsageError(str(exc)) from None
+    try:
+        return run_args(args, rank)
+    finally:
+        distributed.shutdown()
+
+
+def run_args(args, rank=None):
+    """run() on parsed arguments; `rank` is (rank, world size) of the
+    process group under --distributed."""
     device, _ = resolve(args.device, args.dtype)
+    final_outputs = (args.str_vcf, args.stutter_out, args.viz_out)
+    if rank is not None:
+        device = distributed.place(device, rank[0])
+        args.locus_shard = f"{rank[0]}/{rank[1]}"
+        # every rank writes shard files; rank 0 merges after a barrier
+        args.str_vcf, args.stutter_out, args.viz_out = (
+            f"{p}.dshard{rank[0]}" if p else None for p in final_outputs)
 
     if args.bams:
         bam_paths = args.bams.split(",")
@@ -252,36 +443,49 @@ def run(argv=None):
                                  lib_field=args.lib_field)
     host_workers = resolve_host_workers(
         args.host_workers, device, len(os.sched_getaffinity(0)))
-    if host_workers > 1 and args.batch_loci > 0 and not (
-            args.pass_bam or args.filt_bam):
-        # host worker pool: per-locus host phases in N processes, this one
-        # owns the device (parallel/workers.py)
-        from .parallel.workers import run_pooled
-        worker_spec = dict(bam_paths=bam_paths, fasta_path=args.fasta,
-                           opts=copy.deepcopy(opts), bam_samps=bam_samps,
-                           bam_libs=bam_libs, lib_field=args.lib_field)
-        counters = run_pooled(pipeline, args.regions, args.str_vcf, device,
-                              worker_spec, n_workers=host_workers,
-                              batch_size=args.batch_loci,
-                              full_command=" ".join(sys.argv))
-    elif args.batch_loci > 0:
-        from .parallel.executor import run_batched
-        counters = run_batched(pipeline, args.regions, args.str_vcf, device,
-                               batch_size=args.batch_loci,
-                               full_command=" ".join(sys.argv))
-    else:
-        from .pipeline.sequential import run_sequential
-        counters = run_sequential(pipeline, args.regions, args.str_vcf,
-                                  device, full_command=" ".join(sys.argv))
+    command = " ".join(sys.argv)
+    with profiling(args.profile, device, logger):
+        if host_workers > 1 and args.batch_loci > 0 and not (
+                args.pass_bam or args.filt_bam):
+            # host worker pool: per-locus host phases in N processes, this
+            # one owns the device (parallel/workers.py)
+            from .parallel.workers import run_pooled
+            worker_spec = dict(bam_paths=bam_paths, fasta_path=args.fasta,
+                               opts=copy.deepcopy(opts), bam_samps=bam_samps,
+                               bam_libs=bam_libs, lib_field=args.lib_field)
+            counters = run_pooled(pipeline, args.regions, args.str_vcf,
+                                  device, worker_spec,
+                                  n_workers=host_workers,
+                                  batch_size=args.batch_loci,
+                                  full_command=command)
+        elif args.batch_loci > 0:
+            from .parallel.executor import run_batched
+            counters = run_batched(pipeline, args.regions, args.str_vcf,
+                                   device, batch_size=args.batch_loci,
+                                   full_command=command)
+        else:
+            from .pipeline.sequential import run_sequential
+            counters = run_sequential(pipeline, args.regions, args.str_vcf,
+                                      device, full_command=command)
     logger.quiet = args.silent
     logger.log(pipeline.timer.summary())
+    vals = [counters.genotype_success, counters.genotype_fail,
+            counters.too_few_reads, counters.too_many_reads,
+            counters.too_long, counters.em_fail, counters.missing_model]
+    tag = ""
+    if rank is not None:
+        vals = distributed.sum_counters(vals)
+        tag = f"[{rank[0]}/{rank[1]}] global "
     logger.log(
-        f"Summary: success={counters.genotype_success} "
-        f"fail={counters.genotype_fail} "
-        f"too_few_reads={counters.too_few_reads} "
-        f"too_many_reads={counters.too_many_reads} "
-        f"too_long={counters.too_long} em_fail={counters.em_fail} "
-        f"missing_model={counters.missing_model}")
+        f"{tag}Summary: success={vals[0]} fail={vals[1]} "
+        f"too_few_reads={vals[2]} too_many_reads={vals[3]} "
+        f"too_long={vals[4]} em_fail={vals[5]} missing_model={vals[6]}")
+    if rank is not None:
+        distributed.barrier()
+        if rank[0] == 0:
+            merge_shard_outputs(*final_outputs, [
+                tuple(f"{p}.dshard{r}" if p else None for p in final_outputs)
+                for r in range(rank[1])])
     if args.log:
         log_stream.close()
     return pipeline, counters
@@ -289,6 +493,9 @@ def run(argv=None):
 
 def main(argv=None) -> int:
     try:
+        args = build_parser().parse_args(argv)
+        if args.workers > 1:
+            return run_workers(args, argv)
         run(argv)
     except UsageError as exc:
         print(f"ERROR: {exc}", file=sys.stderr)

@@ -6,15 +6,23 @@ tools/make_golden_data.py, here without any JAX import so the card's smoke
 run can use them.  `GOLDEN_CONFIGS` are the golden suites' datasets and
 flags.  `write_trio_denovo` and `write_phased_snps` make the de novo golden
 suite's trio (tests/test_golden_denovo.py), and `write_denovo_cohort` a
-synthetic STR VCF of many families for the de novo scanners.  The loci
+synthetic STR VCF of many families for the de novo scanners.
+`MODE_CONFIGS` are the CLI modes of the JAX package's tests
+(tests/test_cli_modes.py, tests/test_phasing.py, tests/test_cram.py): each
+test's dataset, seeds and flags, with `mode_runs`, `mode_vcf_body` and
+`mode_products` for their outputs.  The loci
 come from the port's copy of the simulator (utils/simulate.py), seeded, so
 the same dataset is made anew on any machine.
 """
 
 from __future__ import annotations
 
+import gzip
+import hashlib
 import os
 import random
+import shutil
+from typing import Callable, NamedTuple, Tuple
 
 import numpy as np
 
@@ -225,6 +233,189 @@ def golden_tool_args(name: str):
             out.append(flag)
         elif value is not False:
             out += [flag, str(value)]
+    return out
+
+
+# ------------------------------------------------------------- CLI modes
+def write_cli_inputs(out: str, locus, hp_tags: bool = False,
+                     bam: str = "sim.bam", read_groups: bool = True,
+                     bed_name: str = "SIM1") -> None:
+    """One simulated locus as sim.fa, regions.bed and a BAM: the writer of
+    tests/test_cli_modes.py::_write_inputs (also tests/test_phasing.py's
+    --ref-vcf test), or with `read_groups=False` the RG-less BAM of its
+    --bam-samps test."""
+    write_fasta(f"{out}/sim.fa", [(locus.chrom, locus.chrom_seq)])
+    r = locus.region
+    with open(f"{out}/regions.bed", "w") as fh:
+        fh.write(f"{r.chrom}\t{r.start + 1}\t{r.stop}\t{r.period}\t8.0\t"
+                 f"{bed_name}\n")
+    header = ("@HD\tVN:1.6\tSO:coordinate\n"
+              f"@SQ\tSN:{locus.chrom}\tLN:{len(locus.chrom_seq)}\n")
+    if read_groups:
+        header += "".join(f"@RG\tID:rg{n}\tSM:{n}\tLB:lib{n}\n"
+                          for n in locus.sample_names)
+    writer = BamWriter(f"{out}/{bam}", [locus.chrom], [len(locus.chrom_seq)],
+                       header)
+    for rd in sorted(locus.raw_reads, key=lambda d: d["start"]):
+        tags = {"RG": ("Z", f"rg{rd['sample']}")} if read_groups else {}
+        if hp_tags:
+            tags["HP"] = ("i", rd["hap"])
+        writer.write(BamRecord(
+            name=rd["name"], flag=0x10 if rd["rev"] else 0, ref_id=0,
+            pos=rd["start"], mapq=60, cigar=[(len(rd["seq"]), "M")],
+            mate_ref_id=-1, mate_pos=-1, tlen=0, seq=rd["seq"],
+            qual=rd["quals"], tags=tags))
+    writer.close()
+
+
+# the committed CRAM fixture of tests/test_cram.py: contig chrT (264 bp),
+# 20 reads x 70 bp over 2 samples, a TTG x 8 repeat at 0-based 120-144
+CRAM_FIXTURE = ("cram_fix.cram", "cram_fix.cram.crai", "cram_fix.bam",
+                "cram_fix.bam.bai", "cram_fix.fa", "cram_fix.fa.fai")
+
+
+def write_cram_inputs(out: str) -> None:
+    """The CRAM fixture (tests/data/cram_fix.*) and a BED over its repeat."""
+    data = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), "tests", "data")
+    for name in CRAM_FIXTURE:
+        shutil.copyfile(os.path.join(data, name), os.path.join(out, name))
+    with open(f"{out}/regions.bed", "w") as fh:
+        fh.write("chrT\t121\t144\t3\t8.0\tCRAM1\n")
+
+
+def _locus_writer(**kw):
+    extra = {k: kw.pop(k) for k in ("bam", "read_groups", "bed_name")
+             if k in kw}
+    return lambda out: write_cli_inputs(out, simulate_locus(**kw), **extra)
+
+
+def _inputs(bam: str = "sim.bam", fasta: str = "sim.fa"):
+    return ("--bams", "{d}/" + bam, "--fasta", "{d}/" + fasta, "--regions",
+            "{d}/regions.bed")
+
+
+class Mode(NamedTuple):
+    """A CLI mode of the JAX tests: its dataset writer (into a directory)
+    and its runs, in order, each (label, flags) with "{d}" for the dataset
+    directory and "{o}" for the output directory.  A run writes
+    {o}/<label>.vcf unless it passes --skip-genotyping."""
+    write: Callable[[str], None]
+    runs: Tuple[Tuple[str, Tuple[str, ...]], ...]
+
+
+_SIM1 = dict(n_samples=3, reads_per_sample=30, period=3, ref_units=8)
+# tests/test_cli_modes.py::_run_cli's flags (and tests/test_phasing.py's)
+_CLI = _inputs() + ("--use-unpaired", "--min-reads", "20")
+_DEF = _CLI + ("--def-stutter-model",)
+MODE_CONFIGS = {
+    # tests/test_cli_modes.py:57
+    "haploid": Mode(_locus_writer(seed=123, haploid=True, **_SIM1), (
+        ("out", _DEF + ("--haploid-chrs", "chrSim")),)),
+    # :83, the second run reads the first run's models
+    "stutter_roundtrip": Mode(_locus_writer(seed=207, **dict(
+        _SIM1, n_samples=4)), (
+        ("pass1", _CLI + ("--stutter-out", "{o}/models.txt")),
+        ("pass2", _CLI + ("--stutter-in", "{o}/models.txt")))),
+    # :124
+    "skip_genotyping": Mode(_locus_writer(seed=5, **_SIM1), (
+        ("skip", _CLI + ("--skip-genotyping", "--stutter-out",
+                         "{o}/models.txt", "--pass-bam", "{o}/pass.bam",
+                         "--filt-bam", "{o}/filt.bam")),)),
+    # :148
+    "sample_list": Mode(_locus_writer(seed=19, **dict(_SIM1, n_samples=4)), (
+        ("out", _DEF + ("--min-reads", "10", "--sample-list",
+                        "SAMPLE000,SAMPLE001", "--hide-allreads",
+                        "--hide-mallreads")),)),
+    # :320 (the extraction as tests/test_phasing.py:177 makes it)
+    "viz": Mode(_locus_writer(seed=311, **_SIM1), (
+        ("out", _DEF + ("--batch-loci", "4", "--viz-out", "{o}/viz.gz")),)),
+    # :383, a repeat longer than the reads: no record
+    "unspannable": Mode(_locus_writer(
+        seed=5011, n_samples=3, reads_per_sample=25, period=6, ref_units=12,
+        read_len=70), (
+        ("out", _DEF + ("--min-reads", "15")),)),
+    # :398, no read groups
+    "bam_samps": Mode(_locus_writer(
+        seed=99, n_samples=1, reads_per_sample=30, period=3, ref_units=8,
+        bam="norg.bam", read_groups=False, bed_name="X"), (
+        ("out", _inputs("norg.bam") + (
+            "--bam-samps", "SAMPLEX", "--bam-libs", "LIBX", "--use-unpaired",
+            "--min-reads", "15", "--def-stutter-model")),)),
+    # tests/test_phasing.py:127, the second run takes the first's VCF as
+    # its reference panel
+    "ref_vcf": Mode(_locus_writer(seed=91, **_SIM1), (
+        ("pass1", _DEF),
+        ("pass2", _DEF + ("--ref-vcf", "{o}/pass1.vcf")))),
+    # tests/test_phasing.py:218 (tools/make_golden_data.py --loci 4
+    # --samples 2 --reads 30)
+    "locus_shard": Mode(
+        lambda out: write_golden(out, loci=4, samples=2, reads=30), tuple(
+            (label, _CLI + ("--min-reads", "10", "--def-stutter-model")
+             + shard) for label, shard in (
+                ("all", ()), ("shard0", ("--locus-shard", "0/2")),
+                ("shard1", ("--locus-shard", "1/2"))))),
+    # tests/test_cram.py:51, on the committed fixture
+    "cram": Mode(write_cram_inputs, tuple(
+        (label, _inputs(f"cram_fix.{label}", "cram_fix.fa") + (
+            "--use-unpaired", "--min-reads", "5", "--def-stutter-model"))
+        for label in ("bam", "cram"))),
+}
+
+
+def mode_runs(name: str, d: str, o: str):
+    """[(label, the genotyper's command line)] of mode `name` on the
+    dataset in `d`, writing into `o` (no --device, --dtype or run-mode
+    flags)."""
+    runs = []
+    for label, flags in MODE_CONFIGS[name].runs:
+        args = [f.format(d=d, o=o) for f in flags] + ["--silent"]
+        if "--skip-genotyping" not in flags:
+            args += ["--str-vcf", f"{o}/{label}.vcf"]
+        runs.append((label, args))
+    return runs
+
+
+def mode_vcf_body(name: str, o: str):
+    """The VCF bodies of mode `name`'s runs in `o`, in run order."""
+    body = []
+    for label, flags in MODE_CONFIGS[name].runs:
+        if "--skip-genotyping" not in flags:
+            body += [l for l in open(f"{o}/{label}.vcf")
+                     if not l.startswith("#")]
+    return body
+
+
+def mode_products(name: str, d: str, o: str) -> dict:
+    """Mode `name`'s outputs other than VCFs, by file name: stutter-model
+    files and the pass/filt BAMs and viz files (BGZF, decompressed), and for
+    --viz-out the page the vizaln entry point extracts for the first
+    locus (viz.html)."""
+    from ..pipeline.viz import extract_locus_html
+    out = {}
+    for _, flags in MODE_CONFIGS[name].runs:
+        for opt in ("--stutter-out", "--pass-bam", "--filt-bam", "--viz-out"):
+            if opt in flags:
+                path = flags[flags.index(opt) + 1].format(d=d, o=o)
+                data = open(path, "rb").read()
+                if data[:2] == b"\x1f\x8b":
+                    data = gzip.decompress(data)
+                out[os.path.basename(path)] = data
+                if opt == "--viz-out":
+                    chrom, start = open(f"{d}/regions.bed").readline().split(
+                        "\t")[:2]
+                    page = extract_locus_html(path, chrom, int(start))
+                    out["viz.html"] = (page or "").encode()
+    return out
+
+
+def product_digest(name: str, data: bytes) -> dict:
+    """sha256 and size of product `name`, and the text of a stutter-model
+    file (.txt), whose parameters are compared by value where a printed
+    digit differs."""
+    out = dict(sha256=hashlib.sha256(data).hexdigest(), size=len(data))
+    if name.endswith(".txt"):
+        out["text"] = data.decode()
     return out
 
 

@@ -74,8 +74,11 @@ def test_the_scan_sees_lazy_imports(tmp_path):
      "hipstr_tpu_torch.parallel.executor", "hipstr_tpu_torch.utils.simdata",
      "hipstr_tpu_torch.ops.em_batched", "hipstr_tpu_torch.parallel.workers"],
     ["hipstr_tpu_torch.denovo_finder", "hipstr_tpu_torch.phasing_checker",
-     "hipstr_tpu_torch.scripts.annotate_denovo"]],
-    ids=["entry-points", "denovo-entry-points"])
+     "hipstr_tpu_torch.scripts.annotate_denovo"],
+    ["hipstr_tpu_torch.parallel.distributed", "hipstr_tpu_torch.pipeline.pdf",
+     "hipstr_tpu_torch.scripts.filter_vcf",
+     "hipstr_tpu_torch.scripts.get_stutter_models"]],
+    ids=["entry-points", "denovo-entry-points", "scale-out-and-scripts"])
 def test_importing_the_port_loads_no_jax(modules):
     script = ("import importlib, sys\n"
               f"for m in {modules!r}:\n"
