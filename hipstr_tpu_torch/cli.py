@@ -27,7 +27,6 @@ import sys
 
 from .device import resolve, resolve_device
 from .models.stutter import StutterModel
-from .parallel import distributed
 from .pipeline.processor import GenotyperPipeline, Logger, PipelineOptions
 from .pipeline.vcf_record import OutputConfig
 
@@ -345,158 +344,172 @@ def profiling(trace_dir, device, logger):
     logger.log(f"torch profiler trace written to {trace_dir}")
 
 
-# ------------------------------------------------------------------- run
-def run(argv=None):
-    """Parse `argv` and run the pooled, batched or (`--batch-loci 0`)
-    sequential pipeline, as one rank of a process group with
-    `--distributed`; returns (pipeline, this process's counters).  Raises
-    UsageError for a refused command line; device and kernel errors
-    propagate."""
-    args = build_parser().parse_args(argv)
-    refuse_unported(args)
+# ----------------------------------------------------------- --distributed
+@contextlib.contextmanager
+def process_group(args):
+    """(rank, world size) of this process in the --distributed gloo group
+    (parallel/distributed.py) for the block, left on every exit; None
+    without --distributed.  A command line that names no group to join, or
+    that also gives --locus-shard, raises UsageError."""
     if not args.distributed:
-        return run_args(args)
+        yield None
+        return
     if args.locus_shard:
         raise UsageError("--distributed assigns locus shards itself; drop "
                          "--locus-shard")
+    from .parallel import distributed
     try:
         rank = distributed.init(args.coordinator, args.num_processes,
                                 args.process_id)
     except distributed.RendezvousError as exc:
         raise UsageError(str(exc)) from None
     try:
-        return run_args(args, rank)
+        yield rank
     finally:
         distributed.shutdown()
 
 
-def run_args(args, rank=None):
-    """run() on parsed arguments; `rank` is (rank, world size) of the
-    process group under --distributed."""
-    device, _ = resolve(args.device, args.dtype)
+# ------------------------------------------------------------------- run
+def run(argv=None):
+    """run_args() on the parsed `argv`."""
+    return run_args(build_parser().parse_args(argv))
+
+
+def run_args(args):
+    """Run the pooled, batched or (`--batch-loci 0`) sequential pipeline,
+    as one rank of a process group with `--distributed`; returns
+    (pipeline, this process's counters).  Raises UsageError for a refused
+    command line; device and kernel errors propagate."""
+    refuse_unported(args)
     final_outputs = (args.str_vcf, args.stutter_out, args.viz_out)
-    if rank is not None:
-        device = distributed.place(device, rank[0])
-        args.locus_shard = f"{rank[0]}/{rank[1]}"
-        # every rank writes shard files; rank 0 merges after a barrier
-        args.str_vcf, args.stutter_out, args.viz_out = (
-            f"{p}.dshard{rank[0]}" if p else None for p in final_outputs)
+    with process_group(args) as rank:
+        device, _ = resolve(args.device, args.dtype)
+        if rank is not None:
+            from .parallel import distributed
+            device = distributed.place(device, rank[0])
+            args.locus_shard = f"{rank[0]}/{rank[1]}"
+            # every rank writes shard files; rank 0 merges after a barrier
+            args.str_vcf, args.stutter_out, args.viz_out = (
+                f"{p}.dshard{rank[0]}" if p else None for p in final_outputs)
 
-    if args.bams:
-        bam_paths = args.bams.split(",")
-    elif args.bam_files:
-        with open(args.bam_files) as fh:
-            bam_paths = [l.strip() for l in fh if l.strip()]
-    else:
-        raise UsageError("--bams or --bam-files is required")
-    if not args.str_vcf and not args.skip_genotyping:
-        raise UsageError("--str-vcf option required (or use "
-                         "--skip-genotyping)")
-
-    cfg = OutputConfig(
-        output_gls=args.output_gls, output_pls=args.output_pls,
-        output_phased_gls=args.output_phased_gls,
-        output_filters=args.output_filters,
-        output_haplotype_data=args.output_hap_fields,
-        output_allreads=not args.hide_allreads,
-        output_mallreads=not args.hide_mallreads,
-        viz_left_alns=args.viz_left_alns,
-        max_flank_indel_frac=args.max_flank_indel)
-
-    def_model = None
-    if args.def_stutter_model:
-        def_model = StutterModel(0.95, 0.05, 0.05, 0.95, 0.01, 0.01, 2)
-
-    haploid_chroms = [c for c in args.haploid_chrs.split(",") if c]
-    if args.hap_chr_file:
-        with open(args.hap_chr_file) as fh:
-            haploid_chroms.extend(l.strip() for l in fh if l.strip())
-
-    opts = PipelineOptions(
-        min_reads=args.min_reads, max_reads=args.max_reads,
-        max_str_len=args.max_str_len, use_unpaired=args.use_unpaired,
-        remove_pcr_dups=not args.no_rmdup, def_stutter_model=def_model,
-        stutter_in=args.stutter_in, stutter_out=args.stutter_out,
-        haploid_chroms=tuple(haploid_chroms),
-        max_haps=args.max_haps, max_hap_flanks=args.max_hap_flanks,
-        min_flank_freq=args.min_flank_freq, chrom=args.chrom,
-        max_regions=args.max_regions, dtype=args.dtype,
-        snp_vcf=args.snp_vcf, ref_vcf=args.ref_vcf, fam_file=args.fam,
-        viz_out=args.viz_out,
-        locus_shard=(tuple(int(x) for x in args.locus_shard.split("/"))
-                     if args.locus_shard else None),
-        max_mate_dist=args.max_mate_dist,
-        base_qual_trim=args.read_qual_trim,
-        sample_set=(tuple(args.sample_list.split(","))
-                    if args.sample_list else None),
-        pass_bam=args.pass_bam, filt_bam=args.filt_bam,
-        skip_genotyping=args.skip_genotyping,
-        bams_from_10x=args.bams_from_10x, output=cfg)
-
-    log_stream = open(args.log, "w") if args.log else sys.stderr
-    logger = Logger(log_stream, quiet=args.quiet or args.silent)
-    bam_samps = args.bam_samps.split(",") if args.bam_samps else None
-    bam_libs = args.bam_libs.split(",") if args.bam_libs else None
-
-    pipeline = GenotyperPipeline(bam_paths, args.fasta, opts, logger,
-                                 bam_samps, bam_libs,
-                                 lib_field=args.lib_field)
-    host_workers = resolve_host_workers(
-        args.host_workers, device, len(os.sched_getaffinity(0)))
-    command = " ".join(sys.argv)
-    with profiling(args.profile, device, logger):
-        if host_workers > 1 and args.batch_loci > 0 and not (
-                args.pass_bam or args.filt_bam):
-            # host worker pool: per-locus host phases in N processes, this
-            # one owns the device (parallel/workers.py)
-            from .parallel.workers import run_pooled
-            worker_spec = dict(bam_paths=bam_paths, fasta_path=args.fasta,
-                               opts=copy.deepcopy(opts), bam_samps=bam_samps,
-                               bam_libs=bam_libs, lib_field=args.lib_field)
-            counters = run_pooled(pipeline, args.regions, args.str_vcf,
-                                  device, worker_spec,
-                                  n_workers=host_workers,
-                                  batch_size=args.batch_loci,
-                                  full_command=command)
-        elif args.batch_loci > 0:
-            from .parallel.executor import run_batched
-            counters = run_batched(pipeline, args.regions, args.str_vcf,
-                                   device, batch_size=args.batch_loci,
-                                   full_command=command)
+        if args.bams:
+            bam_paths = args.bams.split(",")
+        elif args.bam_files:
+            with open(args.bam_files) as fh:
+                bam_paths = [l.strip() for l in fh if l.strip()]
         else:
-            from .pipeline.sequential import run_sequential
-            counters = run_sequential(pipeline, args.regions, args.str_vcf,
-                                      device, full_command=command)
-    logger.quiet = args.silent
-    logger.log(pipeline.timer.summary())
-    vals = [counters.genotype_success, counters.genotype_fail,
-            counters.too_few_reads, counters.too_many_reads,
-            counters.too_long, counters.em_fail, counters.missing_model]
-    tag = ""
-    if rank is not None:
-        vals = distributed.sum_counters(vals)
-        tag = f"[{rank[0]}/{rank[1]}] global "
-    logger.log(
-        f"{tag}Summary: success={vals[0]} fail={vals[1]} "
-        f"too_few_reads={vals[2]} too_many_reads={vals[3]} "
-        f"too_long={vals[4]} em_fail={vals[5]} missing_model={vals[6]}")
-    if rank is not None:
-        distributed.barrier()
-        if rank[0] == 0:
-            merge_shard_outputs(*final_outputs, [
-                tuple(f"{p}.dshard{r}" if p else None for p in final_outputs)
-                for r in range(rank[1])])
-    if args.log:
-        log_stream.close()
-    return pipeline, counters
+            raise UsageError("--bams or --bam-files is required")
+        if not args.str_vcf and not args.skip_genotyping:
+            raise UsageError("--str-vcf option required (or use "
+                             "--skip-genotyping)")
+
+        cfg = OutputConfig(
+            output_gls=args.output_gls, output_pls=args.output_pls,
+            output_phased_gls=args.output_phased_gls,
+            output_filters=args.output_filters,
+            output_haplotype_data=args.output_hap_fields,
+            output_allreads=not args.hide_allreads,
+            output_mallreads=not args.hide_mallreads,
+            viz_left_alns=args.viz_left_alns,
+            max_flank_indel_frac=args.max_flank_indel)
+
+        def_model = None
+        if args.def_stutter_model:
+            def_model = StutterModel(0.95, 0.05, 0.05, 0.95, 0.01, 0.01, 2)
+
+        haploid_chroms = [c for c in args.haploid_chrs.split(",") if c]
+        if args.hap_chr_file:
+            with open(args.hap_chr_file) as fh:
+                haploid_chroms.extend(l.strip() for l in fh if l.strip())
+
+        opts = PipelineOptions(
+            min_reads=args.min_reads, max_reads=args.max_reads,
+            max_str_len=args.max_str_len, use_unpaired=args.use_unpaired,
+            remove_pcr_dups=not args.no_rmdup, def_stutter_model=def_model,
+            stutter_in=args.stutter_in, stutter_out=args.stutter_out,
+            haploid_chroms=tuple(haploid_chroms),
+            max_haps=args.max_haps, max_hap_flanks=args.max_hap_flanks,
+            min_flank_freq=args.min_flank_freq, chrom=args.chrom,
+            max_regions=args.max_regions, dtype=args.dtype,
+            snp_vcf=args.snp_vcf, ref_vcf=args.ref_vcf, fam_file=args.fam,
+            viz_out=args.viz_out,
+            locus_shard=(tuple(int(x) for x in args.locus_shard.split("/"))
+                         if args.locus_shard else None),
+            max_mate_dist=args.max_mate_dist,
+            base_qual_trim=args.read_qual_trim,
+            sample_set=(tuple(args.sample_list.split(","))
+                        if args.sample_list else None),
+            pass_bam=args.pass_bam, filt_bam=args.filt_bam,
+            skip_genotyping=args.skip_genotyping,
+            bams_from_10x=args.bams_from_10x, output=cfg)
+
+        log_stream = open(args.log, "w") if args.log else sys.stderr
+        logger = Logger(log_stream, quiet=args.quiet or args.silent)
+        bam_samps = args.bam_samps.split(",") if args.bam_samps else None
+        bam_libs = args.bam_libs.split(",") if args.bam_libs else None
+
+        pipeline = GenotyperPipeline(bam_paths, args.fasta, opts, logger,
+                                     bam_samps, bam_libs,
+                                     lib_field=args.lib_field)
+        host_workers = resolve_host_workers(
+            args.host_workers, device, len(os.sched_getaffinity(0)))
+        command = " ".join(sys.argv)
+        with profiling(args.profile, device, logger):
+            if host_workers > 1 and args.batch_loci > 0 and not (
+                    args.pass_bam or args.filt_bam):
+                # host worker pool: per-locus host phases in N processes, this
+                # one owns the device (parallel/workers.py)
+                from .parallel.workers import run_pooled
+                worker_spec = dict(bam_paths=bam_paths,
+                                   fasta_path=args.fasta,
+                                   opts=copy.deepcopy(opts),
+                                   bam_samps=bam_samps, bam_libs=bam_libs,
+                                   lib_field=args.lib_field)
+                counters = run_pooled(pipeline, args.regions, args.str_vcf,
+                                      device, worker_spec,
+                                      n_workers=host_workers,
+                                      batch_size=args.batch_loci,
+                                      full_command=command)
+            elif args.batch_loci > 0:
+                from .parallel.executor import run_batched
+                counters = run_batched(pipeline, args.regions, args.str_vcf,
+                                       device, batch_size=args.batch_loci,
+                                       full_command=command)
+            else:
+                from .pipeline.sequential import run_sequential
+                counters = run_sequential(pipeline, args.regions, args.str_vcf,
+                                          device, full_command=command)
+        logger.quiet = args.silent
+        logger.log(pipeline.timer.summary())
+        vals = [counters.genotype_success, counters.genotype_fail,
+                counters.too_few_reads, counters.too_many_reads,
+                counters.too_long, counters.em_fail, counters.missing_model]
+        tag = ""
+        if rank is not None:
+            vals = distributed.sum_counters(vals)
+            tag = f"[{rank[0]}/{rank[1]}] global "
+        logger.log(
+            f"{tag}Summary: success={vals[0]} fail={vals[1]} "
+            f"too_few_reads={vals[2]} too_many_reads={vals[3]} "
+            f"too_long={vals[4]} em_fail={vals[5]} missing_model={vals[6]}")
+        if rank is not None:
+            distributed.barrier()
+            if rank[0] == 0:
+                merge_shard_outputs(*final_outputs, [
+                    tuple(f"{p}.dshard{r}" if p else None
+                          for p in final_outputs)
+                    for r in range(rank[1])])
+        if args.log:
+            log_stream.close()
+        return pipeline, counters
 
 
 def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
     try:
-        args = build_parser().parse_args(argv)
         if args.workers > 1:
             return run_workers(args, argv)
-        run(argv)
+        run_args(args)
     except UsageError as exc:
         print(f"ERROR: {exc}", file=sys.stderr)
         return 1

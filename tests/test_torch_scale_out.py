@@ -1,18 +1,20 @@
-"""The port's scale-out and tracing options on the CPU, against a single
-in-process run of the same loci.
+"""The port's scale-out and tracing options on the CPU, in float64 on the
+reference dataset (utils.simdata.reference_loci(), REFERENCE_ARGS), held
+to tests/data/torch_port_ref_f64.vcf: the JAX CLI's output on those loci,
+kept current by tests/test_torch_reference.py.
 
 * `--workers N` (after tests/test_cli_modes.py::test_workers_merge_identical
   and ::test_workers_merge_bgzip_with_tabix): the merged VCF equals the
-  single run's, a .gz target gets its .tbi, no shard file is left; each
+  JAX CLI's, a .gz target gets its .tbi, no shard file is left; each
   child gets the parent's --device and --host-workers 1 (the user's
   --host-workers wins), with n > 1 cards child i takes card i mod n; a
   child that fails fails the run with nothing merged;
 * `--distributed` (after tests/test_distributed.py): two gloo ranks merge
-  to the single run's VCF, every rank logs the summed counters, no
+  to the JAX CLI's VCF, every rank logs the summed counters, no
   .dshard file is left; without a rendezvous, or with --locus-shard, the
   run is refused;
 * `--profile DIR`: torch.profiler writes a trace named by this process's
-  pid and the VCF is unchanged; a trace directory that cannot be made
+  pid and the VCF is still the JAX CLI's; a trace directory that cannot be made
   fails the run.
 """
 
@@ -28,29 +30,24 @@ from hipstr_tpu_torch import cli
 from hipstr_tpu_torch.io.bgzf import BgzfReader
 from hipstr_tpu_torch.io.vcf_read import VCFReader
 from hipstr_tpu_torch.parallel import distributed
-from hipstr_tpu_torch.utils.simdata import write_sim
-from hipstr_tpu_torch.utils.simulate import simulate_locus
+from hipstr_tpu_torch.utils.simdata import (REFERENCE_ARGS, reference_loci,
+                                            write_sim)
 
 from test_torch_slice import ONE_THREAD, ROOT, _body, one_torch_thread  # noqa: F401,E501
 
-# the loci and flags of the JAX --workers tests (their bgzip test's 4 loci)
-ARGS = ["--min-reads", "20", "--use-unpaired", "--def-stutter-model",
-        "--dtype", "float64", "--device", "cpu"]
+ARGS = ["--dtype", "float64", "--device", "cpu"] + REFERENCE_ARGS
+REF_VCF = os.path.join(ROOT, "tests", "data", "torch_port_ref_f64.vcf")
 
 
 @pytest.fixture(scope="module")
 def sim(tmp_path_factory):
-    """4 loci, 3 samples x 25 reads, and the single in-process run's VCF
-    body."""
+    """The reference dataset (8 trio loci, 20 reads per sample) and the JAX
+    CLI's float64 VCF body on it."""
     d = str(tmp_path_factory.mktemp("scale_out"))
-    locs = [simulate_locus(seed=900 + i, n_samples=3, reads_per_sample=25,
-                           period=3, ref_units=8, chrom=f"chrB{i}")
-            for i in range(4)]
+    locs = reference_loci()
     write_sim(d, locs)
-    cli.run(inputs(d) + ARGS + ["--str-vcf", f"{d}/one.vcf", "--silent",
-                                "--host-workers", "1"])
-    body = _body(f"{d}/one.vcf")
-    assert len(body) == 4
+    body = _body(REF_VCF)
+    assert len(body) == len(locs)
     return d, locs, body
 
 
@@ -177,6 +174,7 @@ def _free_port() -> int:
 
 
 def test_two_process_distributed_matches_single(sim, tmp_path):
+    """Two ranks merge to the JAX CLI's single run."""
     d, _, want = sim
     out = str(tmp_path / "dist.vcf")
     port = _free_port()
@@ -192,7 +190,8 @@ def test_two_process_distributed_matches_single(sim, tmp_path):
     assert _body(out) == want
     # the counters summed over both ranks, on every rank
     for rank, err in enumerate(errs):
-        assert f"[{rank}/2] global Summary: success=4 fail=0" in err, err
+        assert (f"[{rank}/2] global Summary: success={len(want)} fail=0"
+                in err), err
     assert os.listdir(tmp_path) == ["dist.vcf"]
 
 
