@@ -82,7 +82,21 @@ Phases (any failure raises and exits non-zero):
      (c) `--distributed` with two gloo ranks on the one card: the same
      body, the summed summary on both ranks, no shard file left; (d)
      `--profile` on the slice, batched and sequential: the VCF equal to
-     phases 4 and 5's, the trace holding K1 + K2 or K1 + K4 events.
+     phases 4 and 5's, the trace holding K1 + K2 or K1 + K4 events;
+ 13. the measuring entry points: (a) `hipstr_tpu_torch.bench --runs 3`
+     (default model, shallow and deep) in-process and with the default
+     --host-workers: every locus genotyped, two K1 and two K2 launches per
+     dispatch, its JSON line printed; (b) the chromosome-scale soak
+     (`hipstr_tpu_torch.tools.soak`) reduced to 1,000 loci x 20 samples x
+     30 reads with phased SNPs, float32 in-process: every locus
+     genotyped, max RSS and peak device memory flat from locus 500 (no
+     100-locus band over 1.2x the first), two K1 and two K2 launches per
+     dispatch; its 2-locus prefix in float64, batched and sequential,
+     byte-identical to tests/data/torch_port_soak_f64.vcf, and the float32
+     run's first 2 records equal to it in genotypes and integer fields;
+     (c) K1 and K2 on the soak's arguments at their most frequent launch
+     shape (captured during (b)), float32 and float64, against the plain
+     versions, timed beside the bound.
 
 The in-process runs of phases 4, 7(a), 8 and 9 pass --host-workers 1, so
 their numbers stay comparable whatever the machine's core count.  After
@@ -98,10 +112,12 @@ import contextlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 REF_VCF = os.path.join(ROOT, "tests", "data", "torch_port_ref_f64.vcf")
@@ -146,6 +162,16 @@ EM_BATCH = 32        # the slice's --batch-loci: the EM's wave size
 EM_TOL = (1e-8, 1e-10)   # card f64 EM vs host EM (tests/test_em_batched.py)
 POOL_WATCHDOG_S = 300    # a pooled run of the slice takes well under this
 SCALE_WATCHDOG_S = 300   # phase 12's --workers and --distributed commands
+# phase 13: the bench (each of its two calls: warm + 3 timed passes of both
+# workloads), and the reduced soak with its memory bound
+BENCH_ARGS = ["--runs", "3"]
+BENCH_WATCHDOG_S = 400
+SOAK_LOCI, SOAK_SAMPLES, SOAK_READS = 1000, 20, 30
+SOAK_BAND = 100          # loci per band of the soak's table
+SOAK_WINDOW_S = 5.0      # seconds per throughput window
+SOAK_FLAT_FROM = 500     # memory is held flat from this locus on
+SOAK_FLAT = 1.2          # ... within this factor of the first full band
+SOAK_VCF = os.path.join(ROOT, "tests", "data", "torch_port_soak_f64.vcf")
 MODES_JSON = os.path.join(ROOT, "tests", "data", "torch_port_modes_f64.json")
 # kernel -> (source, the TPU kernel it replaces); each is checked in phase 3
 # and timed at its path's real launch shapes, beside its bound, in phase 9
@@ -1445,6 +1471,222 @@ def phase_real_shapes(tmp, device, slice_shapes, seq_shapes, loci):
     return results
 
 
+# ---------------------------------------------------------------- phase 13
+def phase_bench():
+    """13a: the port bench once, --runs 3, the default model, shallow and
+    deep, in-process and with the product-default --host-workers: every
+    locus genotyped, two K1 and two K2 launches per dispatch."""
+    from hipstr_tpu_torch import bench, kernels
+    results = {}
+    for label, workers in (("in-process", "1"), ("default workers", "-1")):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with watchdog(BENCH_WATCHDOG_S):
+            res = bench.main(BENCH_ARGS + ["--host-workers", workers])
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        n = res["dispatches"]
+        if not all(x and math.isfinite(x) and x > 0 for x in (
+                res["kernel_ms_per_locus"], res["kernel_deep_ms_per_locus"],
+                res["fetch_ms"], res["peak_device_mib"])):
+            raise AssertionError(f"bench {label}: a device number is "
+                                 "missing")
+        log(f"bench {label} ({res['host_workers']} host workers): "
+            f"{res['value']:.3f} loci/s deep (runs {res['loci_per_sec_runs']}"
+            f"), {res['shallow_loci_per_sec']:.3f} shallow, kernel "
+            f"{res['kernel_ms_per_locus']:.4f} / "
+            f"{res['kernel_deep_ms_per_locus']:.4f} ms per locus, "
+            f"{n} dispatches, launches {launches}, {wall:.1f} s")
+        if (res["success"], res["fail"]) != (res["n_loci"], 0) or (
+                res["shallow_success"], res["shallow_fail"]) != (
+                res["shallow_n_loci"], 0):
+            raise AssertionError(f"bench {label}: not every locus genotyped")
+        if not n or launches["emission"] != 2 * n \
+                or launches["segment"] != 2 * n \
+                or launches["flank_scan"] or launches["segment_scan"]:
+            raise AssertionError(f"bench {label}: launches {launches} for "
+                                 f"{n} dispatches")
+        if res["launches"] != launches:
+            raise AssertionError(f"bench {label}: it counted "
+                                 f"{res['launches']}, the kernels {launches}")
+        check_no_jax()
+        results[label] = dict(res, wall_s=wall)
+    return results
+
+
+class LeaderCapture(Capture):
+    """While active, keeps on the host the arguments of the kernel's most
+    frequent launch shape so far (taken when that shape takes the lead),
+    so at the end those of the run's most frequent shape, in one pass."""
+
+    def __init__(self, module, attr, shape_of):
+        super().__init__(module, attr, shape_of)
+        self.counts = Counter()
+        self.leader = None
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.attr)
+
+        def wrapper(*args, **kwargs):
+            s = self.shape_of(*args)
+            self.counts[s] += 1
+            if self.leader is None or (
+                    s != self.leader
+                    and self.counts[s] > self.counts[self.leader]):
+                self.leader = s
+                self.args = {s: (tree_map(lambda t: t.to("cpu", copy=True),
+                                          args), dict(kwargs))}
+            return self.orig(*args, **kwargs)
+
+        setattr(self.module, self.attr, wrapper)
+        return self
+
+
+def integer_fields_equal(a: str, b: str) -> bool:
+    """Sites, genotypes and every field whose values are all integers
+    equal (floats not compared)."""
+    fa, fb = a.rstrip("\n").split("\t"), b.rstrip("\n").split("\t")
+    if fa[:7] != fb[:7] or fa[8] != fb[8] or len(fa) != len(fb):
+        return False
+
+    def ints(v):
+        try:
+            return [int(x) for x in re.split(r"[|,;/]", v)]
+        except ValueError:
+            return None
+
+    pairs = [(ka, va, vb) for (ka, _, va), (_, _, vb) in zip(
+        (kv.partition("=") for kv in fa[7].split(";")),
+        (kv.partition("=") for kv in fb[7].split(";")))]
+    fmt = fa[8].split(":")
+    for sa, sb in zip(fa[9:], fb[9:]):
+        pairs += list(zip(fmt, sa.split(":"), sb.split(":")))
+    for name, va, vb in pairs:
+        if name == "GT" and va != vb:
+            return False
+        if ints(vb) is not None and ints(va) != ints(vb):
+            return False
+    return True
+
+
+def check_flat(bands) -> dict:
+    """Max RSS and peak device memory flat from locus SOAK_FLAT_FROM on:
+    no full band's value over SOAK_FLAT times the first such band's."""
+    later = [b for b in bands if b["loci"] == SOAK_BAND
+             and int(b["band"].split("-")[0]) >= SOAK_FLAT_FROM]
+    if not later:
+        raise AssertionError(f"soak: no full band from locus "
+                             f"{SOAK_FLAT_FROM}: {bands}")
+    growth = {}
+    for key in ("max_rss_mb", "peak_device_mib"):
+        ref = later[0][key]
+        growth[key] = max(b[key] for b in later) / ref
+        if growth[key] > SOAK_FLAT:
+            raise AssertionError(f"soak: {key} grew {growth[key]:.3f}x after "
+                                 f"band {later[0]['band']}: "
+                                 f"{[b[key] for b in later]}")
+    return growth
+
+
+def phase_soak(tmp, device):
+    """13b: the reduced soak (SOAK_LOCI x 20 samples x 30 reads, phased
+    SNPs) in float32 in-process: every locus genotyped, memory flat, two
+    K1 and two K2 launches per dispatch; its 2-locus prefix in float64
+    batched and sequential byte-identical to the anchor, the float32
+    run's first records equal to it in genotypes and integer fields.
+    Returns the run's result and the captures of K1's and K2's most
+    frequent launch shapes."""
+    import torch
+    from hipstr_tpu_torch import kernels
+    from hipstr_tpu_torch.ops import hmm2
+    from hipstr_tpu_torch.tools import soak
+    t0 = time.perf_counter()
+    gen_s = soak.ensure_dataset(tmp, SOAK_LOCI, SOAK_SAMPLES, SOAK_READS, log)
+    log(f"soak dataset: {SOAK_LOCI} loci x {SOAK_SAMPLES} samples x "
+        f"{SOAK_READS} reads in {gen_s:.1f} s")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    k1 = LeaderCapture(hmm2, "stutter_emissions", shape_emission)
+    k2 = LeaderCapture(hmm2, "segment_kernel", shape_segment)
+    with k1, k2:
+        res = soak.run(tmp, device, window_s=SOAK_WINDOW_S, band=SOAK_BAND,
+                       log=log)
+    launches = dict(kernels.LAUNCHES)
+    shapes = {k: kernels.SHAPES[k].copy() for k in ("emission", "segment")}
+    log_shapes("soak", shapes)
+    log(soak.band_table(res["bands"]))
+    n = res["dispatches"]
+    log(f"soak: success={res['success']} fail={res['fail']} "
+        f"{res['loci_per_s']:.3f} loci/s, wall {res['wall_s']:.1f} s, "
+        f"max RSS {res['max_rss_mb']:.0f} MB, peak device "
+        f"{res['peak_device_mib']} MiB, {n} dispatches, launches "
+        f"{launches}")
+    if (res["success"], res["fail"]) != (SOAK_LOCI, 0):
+        raise AssertionError("soak: not every locus genotyped")
+    if not n or launches["emission"] != 2 * n \
+            or launches["segment"] != 2 * n \
+            or launches["flank_scan"] or launches["segment_scan"]:
+        raise AssertionError(f"soak: launches {launches} for {n} dispatches")
+    for cap, name in ((k1, "emission"), (k2, "segment")):
+        if cap.counts != shapes[name]:
+            raise AssertionError(f"soak: {name} captured shapes differ")
+    res["memory_growth"] = check_flat(res["bands"])
+    log(f"soak: memory from locus {SOAK_FLAT_FROM} on, largest band over "
+        f"the first: {res['memory_growth']}")
+    check_no_jax()
+
+    want = vcf_body(SOAK_VCF)
+    for batch, label in ((32, "batched"), (0, "sequential")):
+        out = f"{tmp}/prefix_{label}.vcf"
+        pre = soak.run(tmp, device, dtype="float64", batch_size=batch,
+                       max_regions=len(want), out=out, window_s=1e9,
+                       log=log)
+        got = vcf_body(out)
+        if (pre["success"], pre["fail"]) != (len(want), 0) or got != want:
+            hold_bodies(f"soak f64 {label} prefix", got, want)
+            raise AssertionError(f"soak f64 {label} prefix: not "
+                                 "byte-identical to the anchor")
+        log(f"soak f64 {label} prefix: {len(got)} records byte-identical to "
+            f"{os.path.relpath(SOAK_VCF, ROOT)}")
+    got = vcf_body(f"{tmp}/out.vcf")[:len(want)]
+    same = sum(a == b for a, b in zip(got, want))
+    if not all(integer_fields_equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("soak f32 prefix: genotypes or integer fields "
+                             "differ from the anchor")
+    log(f"soak f32 prefix: genotypes and integer fields equal to the "
+        f"anchor, {same}/{len(want)} records byte-identical")
+    check_no_jax()
+    res.update(phase_s=time.perf_counter() - t0, generate_s=gen_s,
+               f32_prefix_byte_identical=same)
+    return res, {"emission": k1, "segment": k2}
+
+
+def phase_soak_kernels(device, captures):
+    """13c: K1 and K2 on the soak's arguments at their most frequent launch
+    shape, float32 and float64: against the plain version, timed, beside
+    the bound."""
+    import torch
+    from hipstr_tpu_torch.ops import hmm2
+    from hipstr_tpu_torch.ops.emission import stutter_emissions
+    from hipstr_tpu_torch.ops.stutter_emission import stutter_emissions_plain
+    table = {"emission": (stutter_emissions, stutter_emissions_plain,
+                          bound_emission),
+             "segment": (hmm2.segment_kernel, hmm2.segment_forward_plain,
+                         bound_segment)}
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=device)
+    results = {}
+    for name, (kernel, plain, bound_fn) in table.items():
+        cap = captures[name]
+        args, kwargs = cap.args[cap.leader]
+        args = tree_map(lambda t: t.to(device), args)
+        results[name] = time_real(name, kernel, plain, bound_fn, args,
+                                  kwargs, cap.leader,
+                                  cap.counts[cap.leader], flush)
+    del flush
+    check_no_jax()
+    return results
+
+
 # --------------------------------------------------------------- phase 10
 def phase_golden(tmp):
     """Every golden configuration on the card, float64 batched and
@@ -2024,9 +2266,21 @@ def main() -> int:
         scale["profile"] = phase_profile(f"{tmp}/slice")
         log(f"phase 12 (CLI modes, scale-out, profiler) took "
             f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        measuring = dict(bench=phase_bench())
+        log(f"phase 13a (bench) took {time.perf_counter() - t0:.1f} s")
+        t1 = time.perf_counter()
+        soak_res, captures = phase_soak(f"{tmp}/soak", device)
+        log(f"phase 13b (soak) took {time.perf_counter() - t1:.1f} s")
+        soak_real = phase_soak_kernels(device, captures)
+        measuring["soak"] = {k: v for k, v in soak_res.items()
+                             if k != "windows"}
+        log(f"phase 13 (bench, soak, soak shapes) took "
+            f"{time.perf_counter() - t0:.1f} s")
     log(json.dumps({"slice": slice_stats, "sequential": seq_stats,
                     "modes": mode_stats, "em": em_stats, "golden": golden,
                     "denovo": denovo, "scale": scale, "card": card,
+                    "measuring": measuring,
                     "ptxas": {k: ptxas[k] for k in ("flank_scan",
                                                     "segment_scan")}}))
     launches.update(flank_scan=seq_launches["flank_scan"],
@@ -2043,6 +2297,14 @@ def main() -> int:
             share=r["share"], exp_log=r["exp_log"], shape=r["shape"],
             library_ms=None, main_shape_ms=main32[name][1],
             main_shape_bound_ms=main32[name][3]))
+        if name in soak_real:        # phase 13c: the soak's shape, f32
+            s = soak_real[name][0]
+            summary["kernels"][-1].update(
+                soak_launches=soak_res["launches"][name],
+                soak_shape=s["shape"], soak_ms=s["ms"],
+                soak_plain_ms=s["plain_ms"], soak_bound_ms=s["bound_ms"],
+                soak_bound_by=s["bound_by"],
+                soak_max_abs_err=s["max_abs_err"])
     if not all(k["launches"] > 0 for k in summary["kernels"]):
         raise AssertionError(f"a kernel was never launched: {summary}")
     print(json.dumps(summary), flush=True)

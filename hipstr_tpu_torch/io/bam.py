@@ -245,14 +245,16 @@ class BamWriter:
         self._linear: List[Dict[int, int]] = [dict() for _ in ref_names]
         self._last_key = None
 
-    def write(self, rec: BamRecord) -> None:
+    def write(self, rec: BamRecord, encoded: Optional[bytes] = None) -> None:
+        """Append `rec`; `encoded` is encode_record(rec) when the caller
+        made it already (in another process, say)."""
         key = (rec.ref_id, rec.pos)
         if self.build_index:
             if self._last_key is not None and key < self._last_key:
                 raise ValueError("records must be coordinate-sorted")
         self._last_key = key
         start_v = self._w.virtual_offset
-        self._w.write(encode_record(rec))
+        self._w.write(encode_record(rec) if encoded is None else encoded)
         end_v = self._w.virtual_offset
         if self.build_index and rec.ref_id >= 0:
             end_pos = max(rec.end_position(), rec.pos + 1)

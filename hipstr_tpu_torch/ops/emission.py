@@ -13,6 +13,7 @@ import ctypes
 import torch
 
 from .. import kernels
+from .hmm import read_chunked
 from .stutter_emission import stutter_emissions_plain
 
 MAX_UNITS = 6
@@ -27,8 +28,9 @@ def stutter_emissions(codes, blw, blc, brev, blen, periods):
     (padded options have blen = 0); blen [G, O] int32; periods [G] int32,
     runtime per locus."""
     if codes.device.type == "cpu":
-        return stutter_emissions_plain(codes, blw, blc, brev, blen, periods,
-                                       MAX_UNITS)
+        return read_chunked(stutter_emissions_plain,
+                            (codes, blw, blc, brev, blen, periods, MAX_UNITS),
+                            (1, 1, 1, None, None, None, None), 3)
     if codes.device.type != "cuda":
         raise ValueError(f"stutter_emissions: unsupported device "
                          f"{codes.device}")

@@ -77,6 +77,28 @@ def expand_quals(quals: torch.Tensor, dtype: torch.dtype):
     return blw, blc
 
 
+CPU_READ_CHUNK = 32     # reads per pass of a plain version on the CPU
+
+
+def read_chunked(fn, args, read_axes, out_axis: int, **kwargs):
+    """fn(*args, **kwargs) over blocks of CPU_READ_CHUNK reads, joined on
+    `out_axis`.  Reads are independent in the plain versions this serves
+    (no sum, max or scan crosses the read axis), so the result is the
+    same to the bit, and on the CPU each block's row state stays in the
+    caches: K1 and K2's plain versions on a locus of 1024 pooled reads
+    ran 2.5x faster.  `read_axes[i]` is the read axis of args[i], or
+    None."""
+    P = next(a.shape[ax] for a, ax in zip(args, read_axes) if ax is not None)
+    if P <= CPU_READ_CHUNK:
+        return fn(*args, **kwargs)
+    parts = []
+    for p in range(0, P, CPU_READ_CHUNK):
+        n = min(CPU_READ_CHUNK, P - p)
+        parts.append(fn(*[a if ax is None else a.narrow(ax, p, n)
+                          for a, ax in zip(args, read_axes)], **kwargs))
+    return torch.cat(parts, dim=out_axis)
+
+
 def shift_right(x: torch.Tensor, fill: float) -> torch.Tensor:
     """x[..., j - 1] along the lane axis, `fill` at lane 0."""
     pad = torch.full(x.shape[:-1] + (1,), fill, dtype=x.dtype, device=x.device)

@@ -22,7 +22,7 @@ import torch
 from .. import kernels
 from .emission import stutter_emissions
 from .hmm import (IMPOSSIBLE, NEG, SeedMeta, emit, expand_quals, flank_row,
-                  forced_match_row, stutter_row)
+                  forced_match_row, read_chunked, stutter_row)
 
 
 # ---- K2 launch geometry (csrc/segment.cu) ----------------------------------
@@ -215,7 +215,9 @@ def segment_forward(codes, quals, last_col, meta, E, R: int, sr: int,
     args, C = segment_args(codes, quals, last_col, meta, E, R, sr, h_real,
                            periods, dtype)
     if codes.device.type == "cpu":
-        Mcol = segment_forward_plain(*args, R=R, sr=sr)
+        Mcol = read_chunked(segment_forward_plain, args,
+                            (1,) * 6 + (None,) * 4 + (3,) + (None,) * 4, 3,
+                            R=R, sr=sr)
     elif codes.device.type == "cuda":
         Mcol = segment_kernel(*args, R=R, sr=sr)
     else:

@@ -252,6 +252,8 @@ def run_batched(pipeline, regions_bed: str, out_vcf: Optional[str],
     # records enter the writer in BED order; loci settle out of order
     pending: Dict[int, Tuple] = {}
     next_emit = [0]
+    # loci settled in BED order so far, read by a progress sampler
+    pipeline.loci_done = 0
 
     def drain_pending():
         while next_emit[0] in pending:
@@ -261,6 +263,7 @@ def run_batched(pipeline, regions_bed: str, out_vcf: Optional[str],
             if viz is not None and pipeline.viz_writer is not None:
                 pipeline.viz_writer.add(*viz)
             next_emit[0] += 1
+            pipeline.loci_done = next_emit[0]
 
     def settle(order, rec=None, viz=None):
         pending[order] = (rec, viz)

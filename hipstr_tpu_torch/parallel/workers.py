@@ -285,6 +285,8 @@ def run_pooled(pipeline, regions_bed: str, out_vcf: Optional[str], device,
     viz_records: List[tuple] = []
     reports: List[dict] = []
     next_emit = next_region = n_settled = 0
+    # loci settled in BED order so far, read by a progress sampler
+    pipeline.loci_done = 0
     n_regions = len(regions)
     outstanding = [0] * n_workers    # preps + lls awaiting a reply per worker
     PREFETCH = max(8, window // max(1, n_workers))
@@ -327,6 +329,7 @@ def run_pooled(pipeline, regions_bed: str, out_vcf: Optional[str], device,
             if viz is not None:
                 viz_records.append(viz)
             next_emit += 1
+            pipeline.loci_done = next_emit
 
     def feed_preps():
         nonlocal next_region

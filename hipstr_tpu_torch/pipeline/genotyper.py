@@ -1,4 +1,7 @@
-"""Copy of hipstr_tpu/pipeline/genotyper.py.
+"""Copy of hipstr_tpu/pipeline/genotyper.py, but for one repair: no
+trace of a locus runs beside its ML-trace prefetch (`prefetch_traces`
+waits for a stale one, `summary_stats_for` collects one in flight), since
+both fill the same unlocked native pointer caches.
 
 Per-locus sequence-based stutter genotyping orchestration.
 
@@ -990,8 +993,11 @@ class SeqStutterGenotyper:
             if tf[0] is self.haplotype:
                 return
             # stale prefetch for a haplotype the adaptive loop replaced:
-            # abandon it (results install only at collect time)
-            self._trace_future = None
+            # wait for it and discard it.  Its native batch reads the
+            # pointer caches of haplotype instances the new haplotype may
+            # share (the content caches), so no other trace of this locus
+            # may run beside it
+            self._collect_trace_future()
         if self.log_aln_probs is None or self.log_post is None:
             return
         _, missing = self._trace_plan(superset=True)
@@ -1078,6 +1084,9 @@ class SeqStutterGenotyper:
         `best_hap` (VCF stats loop; reference
         seq_stutter_genotyper.cpp:1102-1166): (has_stutter, has_flank_indel,
         start, stop, total_stutter, summaries) arrays over len(ridx)."""
+        # a prefetch still in flight shares this locus's haplotype
+        # instances: finish (and install) it before tracing here
+        self._collect_trace_future()
         H = self.num_alleles
         pools = self.pool_index[ridx]
         combos = pools * H + best_hap

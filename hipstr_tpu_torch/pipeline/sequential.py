@@ -35,9 +35,12 @@ def run_sequential(pipeline, regions_bed: str, out_vcf: Optional[str],
                            opts.locus_shard)
     writer = open_vcf(pipeline, out_vcf, full_command)
     prev = hap_aligner.use_device(device)
+    # loci settled so far, read by a progress sampler
+    pipeline.loci_done = 0
     try:
         chrom = chrom_seq = None
-        for region in regions:
+        for done, region in enumerate(regions):
+            pipeline.loci_done = done
             if region.stop - region.start > opts.max_str_len:
                 pipeline.counters.too_long += 1
                 continue
@@ -55,6 +58,7 @@ def run_sequential(pipeline, regions_bed: str, out_vcf: Optional[str],
             except Exception as exc:  # a host error fails only this locus
                 pipeline.counters.genotype_fail += 1
                 pipeline.logger.log(f"ERROR at {region}: {exc!r}")
+        pipeline.loci_done = len(regions)
     finally:
         hap_aligner.use_device(prev)
     close_outputs(pipeline, writer)

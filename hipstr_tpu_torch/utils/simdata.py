@@ -76,6 +76,49 @@ def trio_loci(n_loci: int, reads_per_sample: int = 170, base_seed: int = 31000,
             for i in range(n_loci)]
 
 
+# the chromosome-scale soak's loci (tools/soak.py:generate, BASELINE config
+# 4): contigs of 2 * SOAK_FLANK bp around the repeat, a phased SNP 20 bp
+# from it in every sample
+SOAK_FLANK = 300
+
+
+def soak_params(i: int):
+    """(period, reference units) of soak locus i."""
+    return 1 + (i % 4), 8 + (i % 3)
+
+
+def soak_locus(i: int, n_samples: int, reads: int):
+    """Soak locus i: (contig, its sequence, BED line, SNP VCF contig line,
+    SNP VCF record, [(BamRecord, its encoding)] in coordinate order)."""
+    from ..io.bam import encode_record
+    period, ref_units = soak_params(i)
+    sample_names = [f"S{k}" for k in range(n_samples)]
+    chrom = f"chrS{i}"
+    loc = simulate_locus(seed=70000 + i, n_samples=n_samples,
+                         reads_per_sample=reads, period=period,
+                         ref_units=ref_units, chrom=chrom,
+                         phased_snp_offset=20, sample_names=sample_names)
+    if len(loc.chrom_seq) != 2 * SOAK_FLANK + period * ref_units:
+        raise RuntimeError(f"soak locus {i}: contig of "
+                           f"{len(loc.chrom_seq)} bp")
+    r = loc.region
+    bed = f"{r.chrom}\t{r.start + 1}\t{r.stop}\t{r.period}\t8.0\tX\n"
+    contig = f"##contig=<ID={chrom},length={len(loc.chrom_seq)}>"
+    gt = "\t".join("0|1" for _ in sample_names)
+    snp = (f"{chrom}\t{loc.snp['pos'] + 1}\t.\t{loc.snp['ref']}\t"
+           f"{loc.snp['alt']}\t.\t.\t.\tGT\t{gt}")
+    recs = []
+    for rd in sorted(loc.raw_reads, key=lambda rd: rd["start"]):
+        rec = BamRecord(
+            name=f"{chrom}_{rd['name']}", flag=0x10 if rd["rev"] else 0,
+            ref_id=i, pos=rd["start"], mapq=60,
+            cigar=[(len(rd["seq"]), "M")], mate_ref_id=-1, mate_pos=-1,
+            tlen=0, seq=rd["seq"], qual=rd["quals"],
+            tags={"RG": ("Z", f"rg{rd['sample']}")})
+        recs.append((rec, encode_record(rec)))
+    return chrom, loc.chrom_seq, bed, contig, snp, recs
+
+
 # the dataset behind tests/data/torch_port_ref_f64.vcf: the JAX package's
 # float64 CPU run on it is the port's cross-machine anchor
 REFERENCE_DATASET = dict(n_loci=8, reads_per_sample=20, base_seed=4200,

@@ -77,8 +77,12 @@ def test_the_scan_sees_lazy_imports(tmp_path):
      "hipstr_tpu_torch.scripts.annotate_denovo"],
     ["hipstr_tpu_torch.parallel.distributed", "hipstr_tpu_torch.pipeline.pdf",
      "hipstr_tpu_torch.scripts.filter_vcf",
-     "hipstr_tpu_torch.scripts.get_stutter_models"]],
-    ids=["entry-points", "denovo-entry-points", "scale-out-and-scripts"])
+     "hipstr_tpu_torch.scripts.get_stutter_models"],
+    ["hipstr_tpu_torch.bench", "hipstr_tpu_torch.tools.soak",
+     "hipstr_tpu_torch.tools.profile_host",
+     "hipstr_tpu_torch.tools.decode_bench"]],
+    ids=["entry-points", "denovo-entry-points", "scale-out-and-scripts",
+         "measuring-entry-points"])
 def test_importing_the_port_loads_no_jax(modules):
     script = ("import importlib, sys\n"
               f"for m in {modules!r}:\n"
