@@ -86,7 +86,8 @@ Phases (any failure raises and exits non-zero):
  13. the measuring entry points: (a) `hipstr_tpu_torch.bench --runs 3`
      (default model, shallow and deep) in-process and with the default
      --host-workers: every locus genotyped, two K1 and two K2 launches per
-     dispatch, its JSON line printed; (b) the chromosome-scale soak
+     dispatch, its JSON line printed; then a 4-locus bench in a fresh
+     process (CUDA initialised by the bench itself); (b) the chromosome-scale soak
      (`hipstr_tpu_torch.tools.soak`) reduced to 1,000 loci x 20 samples x
      30 reads with phased SNPs, float32 in-process: every locus
      genotyped, max RSS and peak device memory flat from locus 500 (no
@@ -96,7 +97,18 @@ Phases (any failure raises and exits non-zero):
      run's first 2 records equal to it in genotypes and integer fields;
      (c) K1 and K2 on the soak's arguments at their most frequent launch
      shape (captured during (b)), float32 and float64, against the plain
-     versions, timed beside the bound.
+     versions, timed beside the bound;
+ 14. the batched dispatch sharded over several devices (the JAX CLI's
+     locus mesh): with `cli.run(..., devices=[card 0] * 2)` the slice in
+     float32 (its VCF equal to phase 4's one-shard run) and the `default`
+     golden configuration in float64 (byte-identical to its anchor), K1
+     and K2 launched exactly twice per card-shard, a dispatch split.  With
+     two or more visible cards the same runs over every card, each kernel
+     against its plain version on the last card at phase 9's shapes
+     (float32 and float64, at TOL: the per-device shared-memory
+     attribute), and `graft_entry.dryrun_multichip` over every card; with
+     one card a line says that this leg was not run.  Phases 4, 7 and 13
+     count K1 and K2 per card-shard (a dispatch on one card is one).
 
 The in-process runs of phases 4, 7(a), 8 and 9 pass --host-workers 1, so
 their numbers stay comparable whatever the machine's core count.  After
@@ -104,6 +116,11 @@ every phase no module of JAX or of the JAX package may be loaded.
 Prints the kernel summary as one JSON line (per kernel its real-shape
 time, bound and share of the bound), then as the last line {"ok": true,
 "device": {...}}.  Needs one visible CUDA card.
+
+    python3 chip_smoke.py --cross-card
+
+runs phase 14 alone (with phases 1, 2, 4, 5, 6 and 9's captures, which
+it reads) on a host of two or more cards, so its cross-card leg runs.
 """
 
 from __future__ import annotations
@@ -610,19 +627,20 @@ def phase_slice(tmp, device_name="cuda"):
     shapes = {k: kernels.SHAPES[k].copy() for k in ("emission", "segment")}
     log_shapes("slice", shapes)
     dispatches = pipeline.last_run_stats["dispatches"]
+    shards = pipeline.last_run_stats["card_shards"]
     device_wait = pipeline.timer.totals.get("Device fetch", 0.0)
     log(f"slice: success={counters.genotype_success} "
         f"fail={counters.genotype_fail} dispatches={dispatches} "
-        f"launches={launches}")
+        f"card-shards={shards} launches={launches}")
     log(f"slice: {SLICE_LOCI / wall:.3f} loci/s, wall {wall:.3f} s, "
         f"host {wall - device_wait:.3f} s, device wait {device_wait:.3f} s")
     log(pipeline.timer.summary())
     if counters.genotype_success != SLICE_LOCI or counters.genotype_fail:
         raise AssertionError("slice did not genotype every locus")
     for name in ("emission", "segment"):
-        if launches[name] < 2 * dispatches:
+        if launches[name] < 2 * shards:
             raise AssertionError(f"kernel {name}: {launches[name]} launches "
-                                 f"for {dispatches} dispatches")
+                                 f"for {shards} card-shards")
     for name in ("flank_scan", "segment_scan"):   # per-locus kernels only
         if launches[name]:
             raise AssertionError(f"kernel {name} launched on the batched "
@@ -832,7 +850,8 @@ def em_run_stats(label, pipeline, counters, wall, launches):
     em_s = t.get("Stutter estimation (device)", 0.0)
     log(f"EM {label}: success={counters.genotype_success} "
         f"em_fail={counters.em_fail} fail={counters.genotype_fail} "
-        f"dispatches={rs['dispatches']} launches={launches}")
+        f"dispatches={rs['dispatches']} card-shards={rs['card_shards']} "
+        f"launches={launches}")
     log(f"EM {label}: {SLICE_LOCI / wall:.3f} loci/s, wall {wall:.3f} s, "
         f"host {wall - device_wait:.3f} s, device wait {device_wait:.3f} s, "
         f"Stutter estimation (device) {em_s:.3f} s in {rs['em_waves']} "
@@ -850,10 +869,10 @@ def em_run_stats(label, pipeline, counters, wall, launches):
     if not rs["em_waves"]:
         raise AssertionError(f"EM {label}: no device EM wave")
     for name in ("emission", "segment"):
-        if launches[name] < 2 * rs["dispatches"]:
+        if launches[name] < 2 * rs["card_shards"]:
             raise AssertionError(f"EM {label}: kernel {name}: "
                                  f"{launches[name]} launches for "
-                                 f"{rs['dispatches']} dispatches")
+                                 f"{rs['card_shards']} card-shards")
     for name in ("flank_scan", "segment_scan"):
         if launches[name]:
             raise AssertionError(f"EM {label}: kernel {name} launched on "
@@ -1457,7 +1476,7 @@ def phase_real_shapes(tmp, device, slice_shapes, seq_shapes, loci):
                          hmm_scan.segment_scan_plain, bound_segment_scan),
     }
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=device)
-    results = {}
+    results, held = {}, {}
     for name, (cap, kernel, plain, bound_fn) in table.items():
         results[name] = []
         for shape in top(hists[name]):
@@ -1467,15 +1486,19 @@ def phase_real_shapes(tmp, device, slice_shapes, seq_shapes, loci):
             results[name] += time_real(name, kernel, plain, bound_fn, args,
                                        kwargs, shape, hists[name][shape],
                                        flush)
+            held.setdefault(name, []).append(
+                (kernel, plain, shape,
+                 tree_map(lambda t: t.to("cpu"), args), kwargs))
     del flush
-    return results
+    return results, held
 
 
 # ---------------------------------------------------------------- phase 13
 def phase_bench():
     """13a: the port bench once, --runs 3, the default model, shallow and
     deep, in-process and with the product-default --host-workers: every
-    locus genotyped, two K1 and two K2 launches per dispatch."""
+    locus genotyped, two K1 and two K2 launches per card-shard; then a
+    small bench in a fresh process."""
     from hipstr_tpu_torch import bench, kernels
     results = {}
     for label, workers in (("in-process", "1"), ("default workers", "-1")):
@@ -1485,7 +1508,7 @@ def phase_bench():
             res = bench.main(BENCH_ARGS + ["--host-workers", workers])
         wall = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
-        n = res["dispatches"]
+        n = res["card_shards"]
         if not all(x and math.isfinite(x) and x > 0 for x in (
                 res["kernel_ms_per_locus"], res["kernel_deep_ms_per_locus"],
                 res["fetch_ms"], res["peak_device_mib"])):
@@ -1496,7 +1519,9 @@ def phase_bench():
             f"), {res['shallow_loci_per_sec']:.3f} shallow, kernel "
             f"{res['kernel_ms_per_locus']:.4f} / "
             f"{res['kernel_deep_ms_per_locus']:.4f} ms per locus, "
-            f"{n} dispatches, launches {launches}, {wall:.1f} s")
+            f"{res['dispatches']} dispatches in {n} card-shards over "
+            f"{res['device']['cards']} card(s), launches {launches}, "
+            f"{wall:.1f} s")
         if (res["success"], res["fail"]) != (res["n_loci"], 0) or (
                 res["shallow_success"], res["shallow_fail"]) != (
                 res["shallow_n_loci"], 0):
@@ -1505,13 +1530,43 @@ def phase_bench():
                 or launches["segment"] != 2 * n \
                 or launches["flank_scan"] or launches["segment_scan"]:
             raise AssertionError(f"bench {label}: launches {launches} for "
-                                 f"{n} dispatches")
+                                 f"{n} card-shards")
         if res["launches"] != launches:
             raise AssertionError(f"bench {label}: it counted "
                                  f"{res['launches']}, the kernels {launches}")
         check_no_jax()
         results[label] = dict(res, wall_s=wall)
+    results["fresh process"] = bench_fresh_process()
     return results
+
+
+def bench_fresh_process() -> dict:
+    """The bench as a user starts it, in a fresh process (CUDA not yet
+    initialised), at a small size: exit 0, every locus genotyped, two K1
+    and two K2 launches per card-shard, sharded over every visible card."""
+    import torch
+    argv = [sys.executable, "-m", "hipstr_tpu_torch.bench", "--runs", "1",
+            "--loci", "4", "--deep-loci", "0", "--batch-loci", "4",
+            "--host-workers", "1"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True,
+                          timeout=BENCH_WATCHDOG_S)
+    wall = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError(f"bench in a fresh process: exit "
+                             f"{proc.returncode}\n{proc.stderr[-3000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    n, launches = res["card_shards"], res["launches"]
+    if (res["success"], res["fail"]) != (res["n_loci"], 0) or not n \
+            or launches != dict(emission=2 * n, segment=2 * n,
+                                flank_scan=0, segment_scan=0) \
+            or res["device"]["cards"] != torch.cuda.device_count():
+        raise AssertionError(f"bench in a fresh process: {res}")
+    log(f"bench in a fresh process: {res['value']:.3f} loci/s on "
+        f"{res['n_loci']} loci, {res['dispatches']} dispatches in {n} "
+        f"card-shards over {res['device']['cards']} card(s), launches "
+        f"{launches}, {wall:.1f} s with the interpreter's start")
+    return dict(res, wall_s=wall)
 
 
 class LeaderCapture(Capture):
@@ -1615,18 +1670,20 @@ def phase_soak(tmp, device):
     shapes = {k: kernels.SHAPES[k].copy() for k in ("emission", "segment")}
     log_shapes("soak", shapes)
     log(soak.band_table(res["bands"]))
-    n = res["dispatches"]
+    n = res["card_shards"]
     log(f"soak: success={res['success']} fail={res['fail']} "
         f"{res['loci_per_s']:.3f} loci/s, wall {res['wall_s']:.1f} s, "
         f"max RSS {res['max_rss_mb']:.0f} MB, peak device "
-        f"{res['peak_device_mib']} MiB, {n} dispatches, launches "
+        f"{res['peak_device_mib']} MiB, {res['dispatches']} dispatches in "
+        f"{n} card-shards over {res['device']['cards']} card(s), launches "
         f"{launches}")
     if (res["success"], res["fail"]) != (SOAK_LOCI, 0):
         raise AssertionError("soak: not every locus genotyped")
     if not n or launches["emission"] != 2 * n \
             or launches["segment"] != 2 * n \
             or launches["flank_scan"] or launches["segment_scan"]:
-        raise AssertionError(f"soak: launches {launches} for {n} dispatches")
+        raise AssertionError(f"soak: launches {launches} for {n} "
+                             "card-shards")
     for cap, name in ((k1, "emission"), (k2, "segment")):
         if cap.counts != shapes[name]:
             raise AssertionError(f"soak: {name} captured shapes differ")
@@ -2208,6 +2265,180 @@ def phase_profile(tmp, device_name="cuda"):
     return out
 
 
+# --------------------------------------------------------------- phase 14
+def sharded_run(label, argv, devices):
+    """One CLI run with every batched dispatch sharded over `devices`,
+    launches counted from 0: every locus genotyped, K1 and K2 launched
+    twice per card-shard and no other kernel, a dispatch split over the
+    shards; returns its numbers."""
+    import torch
+    from hipstr_tpu_torch import cli, kernels
+    cards = sorted(set(devices), key=str)
+    for d in cards:
+        torch.cuda.synchronize(d)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    pipeline, counters = cli.run(argv, devices=devices)
+    for d in cards:
+        torch.cuda.synchronize(d)
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    rs = pipeline.last_run_stats
+    n = rs["card_shards"]
+    log(f"shards {label}: {len(devices)} shards on {[str(d) for d in cards]}"
+        f", success={counters.genotype_success} "
+        f"fail={counters.genotype_fail}, {rs['dispatches']} dispatches in "
+        f"{n} card-shards, launches {launches}, wall {wall:.3f} s")
+    if counters.genotype_fail or not counters.genotype_success:
+        raise AssertionError(f"shards {label}: not every locus genotyped")
+    if launches != dict(emission=2 * n, segment=2 * n, flank_scan=0,
+                        segment_scan=0):
+        raise AssertionError(f"shards {label}: launches {launches} for {n} "
+                             "card-shards")
+    if rs["cards"] != len(cards) or rs["shards_per_dispatch"] != len(
+            devices) or not rs["dispatches"] < n <= len(devices) * rs[
+            "dispatches"]:
+        raise AssertionError(f"shards {label}: no dispatch split over the "
+                             f"shards: {rs}")
+    check_no_jax()
+    return dict(shards=len(devices), cards=len(cards),
+                dispatches=rs["dispatches"], card_shards=n,
+                launches=launches, wall_s=wall)
+
+
+def hold_kernels_on(card, held) -> dict:
+    """Each kernel at phase 9's shapes, on the arguments phase 9 captured,
+    on `card`: float32 and float64 against its plain version there, at
+    TOL; returns the largest error per kernel and type."""
+    import torch
+    from hipstr_tpu_torch.device import resolve_dtype
+    out = {}
+    for name, rows in held.items():
+        for kernel, plain, shape, args, kwargs in rows:
+            for dtype_name in ("float32", "float64"):
+                a = as_dtype(tree_map(lambda t: t.to(card), args),
+                             resolve_dtype(dtype_name))
+                got, ref = kernel(*a, **kwargs), plain(*a, **kwargs)
+                torch.cuda.synchronize(card)
+                got = got if isinstance(got, tuple) else (got,)
+                ref = ref if isinstance(ref, tuple) else (ref,)
+                if any(g.device != card for g in got):
+                    raise AssertionError(f"{name} on {card}: result on "
+                                         f"{[str(g.device) for g in got]}")
+                err = max(compare(name, g, r, dtype_name)
+                          for g, r in zip(got, ref))
+                key = f"{name} {dtype_name}"
+                out[key] = max(out.get(key, 0.0), err)
+                log(f"{card} {name} {shape} {dtype_name}: err {err:.3e}")
+    return out
+
+
+def phase_shards(tmp, held):
+    """14: the batched dispatch sharded over several devices.  Two shards
+    on the first card: the slice in float32 (its VCF equal to phase 4's
+    one-shard run) and the `default` golden configuration in float64
+    (byte-identical to its anchor), K1 and K2 twice per card-shard.  With
+    two or more cards, the same runs over every card, each kernel held to
+    its plain version on the last card at phase 9's shapes, and
+    graft_entry.dryrun_multichip over every card; with one card that leg
+    is reported as not run."""
+    import torch
+    from hipstr_tpu_torch import cli
+    from hipstr_tpu_torch.device import local_devices
+    from hipstr_tpu_torch.graft_entry import dryrun_multichip
+    from hipstr_tpu_torch.utils.simdata import golden_args
+    golden = f"{tmp}/golden/default"
+    anchor = os.path.join(ROOT, "tests", "data",
+                          "torch_port_golden_default_f64.vcf")
+    want_slice = vcf_body(f"{tmp}/slice/slice.vcf")
+
+    def runs(label, devices):
+        res = {}
+        out = f"{tmp}/slice/shards_{label}.vcf"
+        res["slice f32"] = sharded_run(
+            f"{label} slice f32", slice_args(f"{tmp}/slice", "batched")
+            + ["--str-vcf", out], devices)
+        got = vcf_body(out)
+        if got != want_slice:
+            hold_bodies(f"shards {label} slice f32", got, want_slice)
+            raise AssertionError(f"shards {label}: the slice's VCF differs "
+                                 "from the one-shard run")
+        out = f"{golden}/shards_{label}.vcf"
+        res["golden default f64"] = sharded_run(
+            f"{label} golden default f64", golden_args("default", golden, out)
+            + ["--dtype", "float64", "--device", "cuda", "--host-workers",
+               "1"], devices)
+        got, want = vcf_body(out), vcf_body(anchor)
+        if got != want:
+            hold_bodies(f"shards {label} golden default f64", got, want)
+            raise AssertionError(f"shards {label}: the golden VCF is not "
+                                 "byte-identical to its anchor")
+        log(f"shards {label}: slice f32 VCF equal to the one-shard run "
+            f"({len(want_slice)} records), golden default f64 "
+            f"byte-identical to {os.path.relpath(anchor, ROOT)}")
+        return res
+
+    cards = local_devices("cuda")
+    out = {"one card": runs("one card", [cards[0]] * 2)}
+    if len(cards) < 2:
+        log(f"shards: cross-card leg NOT RUN: torch.cuda.device_count() = "
+            f"{len(cards)}; it needs two or more cards")
+        out["cross_card"] = f"not run: {len(cards)} card visible"
+        return out
+    out["every card"] = runs(f"{len(cards)} cards", cards)
+    # the same slice in one shard on the first card, for the wall
+    t0 = time.perf_counter()
+    _, counters = cli.run(slice_args(f"{tmp}/slice", "batched") + [
+        "--str-vcf", f"{tmp}/slice/one_shard.vcf"], devices=cards[:1])
+    torch.cuda.synchronize(cards[0])
+    wall = time.perf_counter() - t0
+    if vcf_body(f"{tmp}/slice/one_shard.vcf") != want_slice:
+        raise AssertionError("shards: the one-shard slice VCF differs")
+    log(f"shards: slice f32 in one shard on {cards[0]}: wall {wall:.3f} s")
+    out["one shard wall_s"] = wall
+    out["kernels on the last card"] = hold_kernels_on(cards[-1], held)
+    dryrun_multichip(len(cards), "cuda")
+    out["cross_card"] = f"ran on {len(cards)} cards"
+    check_no_jax()
+    return out
+
+
+def cross_card_main() -> int:
+    """`--cross-card`: phase 14 alone on a host of two or more cards, with
+    what it reads from earlier phases (1, 2, 4, 5, 6, 9's captures and the
+    `default` golden dataset)."""
+    import torch
+    if torch.cuda.device_count() < 2:
+        print("chip_smoke --cross-card: needs two or more visible cards",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    phase_env()
+    phase_build()
+    from hipstr_tpu_torch.device import resolve_device
+    from hipstr_tpu_torch.utils.simdata import (trio_loci, write_golden,
+                                                write_sim)
+    device = resolve_device("cuda")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        os.makedirs(f"{tmp}/slice")
+        write_sim(f"{tmp}/slice", trio_loci(SLICE_LOCI, SLICE_READS))
+        _, slice_shapes, _ = phase_slice(f"{tmp}/slice")
+        _, seq_shapes, _ = phase_sequential(f"{tmp}/slice")
+        _, loci, _ = phase_modes(f"{tmp}/slice", device)
+        _, held = phase_real_shapes(f"{tmp}/slice", device, slice_shapes,
+                                    seq_shapes, loci)
+        write_golden(f"{tmp}/golden/default", loci=3, samples=3, reads=40)
+        t0 = time.perf_counter()
+        shards = phase_shards(tmp, held)
+        log(f"phase 14 (sharded dispatch) took "
+            f"{time.perf_counter() - t0:.1f} s")
+    log(json.dumps({"shards": shards}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2244,8 +2475,8 @@ def main() -> int:
         phase_em_reference(f"{tmp}/ref_em")
         phase_reference(f"{tmp}/ref")
         check_no_jax()
-        real = phase_real_shapes(f"{tmp}/slice", device, slice_shapes,
-                                 seq_shapes, loci)
+        real, held = phase_real_shapes(f"{tmp}/slice", device,
+                                       slice_shapes, seq_shapes, loci)
         check_no_jax()
         t0 = time.perf_counter()
         golden = phase_golden(f"{tmp}/golden")
@@ -2277,10 +2508,14 @@ def main() -> int:
                              if k != "windows"}
         log(f"phase 13 (bench, soak, soak shapes) took "
             f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        shards = phase_shards(tmp, held)
+        log(f"phase 14 (sharded dispatch) took "
+            f"{time.perf_counter() - t0:.1f} s")
     log(json.dumps({"slice": slice_stats, "sequential": seq_stats,
                     "modes": mode_stats, "em": em_stats, "golden": golden,
                     "denovo": denovo, "scale": scale, "card": card,
-                    "measuring": measuring,
+                    "measuring": measuring, "shards": shards,
                     "ptxas": {k: ptxas[k] for k in ("flank_scan",
                                                     "segment_scan")}}))
     launches.update(flank_scan=seq_launches["flank_scan"],
@@ -2315,4 +2550,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(cross_card_main() if sys.argv[1:] == ["--cross-card"]
+             else main())

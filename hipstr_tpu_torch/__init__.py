@@ -19,10 +19,12 @@ Package layout:
                batched stutter EM (torch)
   pipeline/    per-locus packing (prepare_locus), the torch aligner, the
                sequential run, and the host pipeline (copies)
-  parallel/    the batched executor (run_batched) and the host worker
-               pool (run_pooled)
+  parallel/    the batched executor (run_batched, each dispatch sharded
+               over the devices) and the host worker pool (run_pooled)
   utils/       simulated datasets, math, timers
   cli.py       `python -m hipstr_tpu_torch.cli`
+  graft_entry.py  the counterparts of __graft_entry__.py (entry,
+               dryrun_multichip)
 """
 
 __version__ = "0.1.0"

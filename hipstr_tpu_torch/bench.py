@@ -1,4 +1,4 @@
-"""Benchmark of the port: end-to-end and kernel throughput on one card.
+"""Benchmark of the port: end-to-end and kernel throughput on the cards.
 
     python -m hipstr_tpu_torch.bench [--device cuda|cpu] [--runs N]
         [--host-workers N] [--em] [--dtype float32|float64]
@@ -8,7 +8,8 @@
 Counterpart of the JAX package's bench.py.  Prints ONE JSON line.  Its
 headline is end-to-end pipeline throughput (BAM decode -> filters ->
 device HMM and posteriors -> adaptive rounds -> VCF write) through the
-production batched executor (or the host worker pool) on simulated trio
+production batched executor (or the host worker pool), each dispatch
+sharded over every visible card, on simulated trio
 loci, the configuration of tools/reference_baseline.json (3 samples x 20
 reads x 70 bp, the default stutter model, --use-unpaired).  Two
 workloads: shallow (`--loci` x 3 samples x `--reads`) and deep, the
@@ -20,18 +21,22 @@ Keys beside the headline:
   * kernel_ms_per_locus / kernel_deep_ms_per_locus: one production
     dispatch (K1 emission + K2 segment per orientation, the seed
     combination, the fused posteriors) of `--batch-loci` copies of one
-    locus at the shallow and deep shapes: the card's timeline over
-    back-to-back dispatches (CUDA events, after a warm-up, host-to-device
-    copies included) per locus.  Not measured (null) on the CPU;
+    locus at the shallow and deep shapes, on the first card alone: the
+    card's timeline over back-to-back dispatches (CUDA events, after a
+    warm-up, host-to-device copies included) per locus.  Not measured
+    (null) on the CPU;
   * device_wait_s / host_s: the executor's "Device fetch" timer and the
     rest of the wall; worker_start_s: the pool's spawn to first reply;
   * fetch_ms: a small host -> device -> host round trip (null on the CPU);
-  * max_rss_mb, peak_device_mib (torch.cuda.max_memory_allocated);
-  * dispatches and launches: every batched dispatch of the bench (warm and
-    timed passes and the kernel timing) and every kernel launch, so each
-    dispatch's two K1 and two K2 launches can be checked;
-  * device: the card's name and power limit (nvidia-smi) and the host's
-    CPU model.
+  * max_rss_mb, peak_device_mib (torch.cuda.max_memory_allocated, the
+    largest of the cards');
+  * dispatches, card_shards and launches: every batched dispatch of the
+    bench (warm and timed passes and the kernel timing), the card-shards
+    they were cut into, and every kernel launch, so each card-shard's two
+    K1 and two K2 launches can be checked;
+  * device: the card's name and power limit (nvidia-smi), `cards` (the
+    number of cards the dispatches were sharded over) and the host's CPU
+    model.
 
 The card is the default; without one the run raises.  `--device cpu`
 runs the plain PyTorch versions on the host.  A pooled run
@@ -54,7 +59,7 @@ import torch
 
 from . import kernels
 from .cli import resolve_host_workers
-from .device import resolve
+from .device import local_devices, resolve
 from .io.regions import read_regions
 from .models.stutter import StutterModel
 from .pipeline.processor import GenotyperPipeline, Logger, PipelineOptions
@@ -93,8 +98,10 @@ def bench_options(dtype: str = "float32", em: bool = False,
 
 
 def synchronize(device: torch.device) -> None:
+    """Wait for every card of `device` (those the dispatches use)."""
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        for card in local_devices(device):
+            torch.cuda.synchronize(card)
 
 
 def run_e2e(tmp: str, device: torch.device, *, workers: int = 1,
@@ -142,7 +149,8 @@ def bench_kernel(device: torch.device, dtype: str, reads_per_sample: int,
         arrays, statics = prepare_locus(g.align_haplotype(), seqs, quals,
                                         seeds, dtype,
                                         post_meta=g.posterior_meta())
-    aligner = BatchedAligner(device, dtype, batch)
+    card = local_devices(device)[0]
+    aligner = BatchedAligner([card], dtype, batch)
     chunk = [LocusWorkItem(region, g, arrays, statics, None)
              for _ in range(batch)]
     aligner._dispatch_chunk(chunk)           # warm-up
@@ -151,11 +159,12 @@ def bench_kernel(device: torch.device, dtype: str, reads_per_sample: int,
     if device.type == "cuda":
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        start.record()
+        stream = torch.cuda.current_stream(card)
+        start.record(stream)
         for _ in range(KERNEL_REPS):
             aligner._dispatch_chunk(chunk)
-        end.record()
-        torch.cuda.synchronize(device)
+        end.record(stream)
+        torch.cuda.synchronize(card)
         ms = start.elapsed_time(end) / KERNEL_REPS / batch
     seg, meta = arrays[0], arrays[2]
     shapes = dict(P=seg.codes.shape[0], L=seg.codes.shape[1],
@@ -221,9 +230,10 @@ def device_info(device: torch.device) -> dict:
     """The device a run measured: on the card its name and the name and
     power limit nvidia-smi reports; always the host's CPU model."""
     info = {"platform": "gpu" if device.type == "cuda" else "cpu",
+            "cards": len(local_devices(device)),
             "host_cpu": host_cpu(), "cores": len(os.sched_getaffinity(0))}
     if device.type == "cuda":
-        info["name"] = torch.cuda.get_device_name(device)
+        info["name"] = torch.cuda.get_device_name(local_devices(device)[0])
         out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True,
                              text=True, check=True)
@@ -235,10 +245,23 @@ def max_rss_mb() -> float:
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
 
 
+def reset_peak_device(device: torch.device) -> None:
+    """Reset the peak memory of every card of `device`.  CUDA is
+    initialised first: a reset on a card named by index does not do it,
+    and fails in a fresh process."""
+    if device.type == "cuda":
+        torch.cuda.init()
+        for card in local_devices(device):
+            torch.cuda.reset_peak_memory_stats(card)
+
+
 def peak_device_mib(device: torch.device):
+    """The largest peak of device memory over the cards, in MiB; None on
+    the CPU."""
     if device.type != "cuda":
         return None
-    return torch.cuda.max_memory_allocated(device) / 2 ** 20
+    return max(torch.cuda.max_memory_allocated(card)
+               for card in local_devices(device)) / 2 ** 20
 
 
 def measure(tmp: str, n_loci: int, device: torch.device, args,
@@ -250,10 +273,12 @@ def measure(tmp: str, n_loci: int, device: torch.device, args,
     _, _, times = run_e2e(tmp, device, max_regions=WARM_LOCI, **kw)
     kw["workers"] = workers
     dispatches = times["_run_stats"]["dispatches"]
+    shards = times["_run_stats"]["card_shards"]
     rates, waits, hosts, starts, counts = [], [], [], [], []
     for _ in range(args.runs):
         dt, counters, times = run_e2e(tmp, device, **kw)
         dispatches += times["_run_stats"]["dispatches"]
+        shards += times["_run_stats"]["card_shards"]
         # with concurrent fetcher threads the summed fetch time can exceed
         # the wall; host_s is clamped accordingly
         wait = times.get("Device fetch", 0.0)
@@ -271,7 +296,8 @@ def measure(tmp: str, n_loci: int, device: torch.device, args,
         success=min(c.genotype_success for c in counts),
         fail=max(c.genotype_fail for c in counts),
         em_fail=max(c.em_fail for c in counts),
-        dispatches=dispatches, spec=spec_keys(times.get("_run_stats")))
+        dispatches=dispatches, card_shards=shards,
+        spec=spec_keys(times.get("_run_stats")))
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -307,8 +333,7 @@ def main(argv=None) -> dict:
     device, _ = resolve(args.device, args.dtype)
     workers = resolve_host_workers(args.host_workers, device,
                                    len(os.sched_getaffinity(0)))
-    if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(device)
+    reset_peak_device(device)
     launches0 = dict(kernels.LAUNCHES)
     ref, ref_deep = reference_rates()
 
@@ -340,10 +365,11 @@ def main(argv=None) -> dict:
         "metric": "end_to_end_loci_per_sec",
         "value": head["median"],
         "unit": "loci/s (full pipeline: BAM->filters->device->VCF; "
-                "3 samples x %d reads%s, %s, %s, 1 device; median of %d "
-                "runs)" % (hdl_reads, " [30x-trio headline]" if deep else "",
-                           "EM" if args.em else "def-stutter", args.dtype,
-                           args.runs),
+                "3 samples x %d reads%s, %s, %s, %d device(s); median of "
+                "%d runs)" % (hdl_reads,
+                              " [30x-trio headline]" if deep else "",
+                              "EM" if args.em else "def-stutter", args.dtype,
+                              info["cards"], args.runs),
         "vs_baseline": vs_deep if deep else vs_shallow,
         "n_loci": head["n_loci"],
         "success": head["success"],
@@ -379,6 +405,8 @@ def main(argv=None) -> dict:
         "peak_device_mib": peak_device_mib(device),
         "dispatches": shallow["dispatches"] + (deep["dispatches"] if deep
                                                else 0) + n_kd,
+        "card_shards": shallow["card_shards"] + (deep["card_shards"] if deep
+                                                 else 0) + n_kd,
         "launches": launches,
         "platform": info["platform"],
         "device": info,

@@ -9,9 +9,11 @@ error).  Every path of the JAX CLI runs here: the batched run
 (`--host-workers`), the sequential run (`--batch-loci 0`), each with a
 stutter model or learning one (on the card the batched runs learn each
 wave's models together, the device EM; elsewhere each locus runs the host
-EM); `--workers N` (child processes over locus shards, merged), with
-`--distributed` (ranks of a torch.distributed gloo group, see
-parallel/distributed.py) and `--profile DIR` (torch.profiler).  Only
+EM), each batched dispatch sharded over every visible card (the JAX
+CLI's locus mesh; parallel/executor.py); `--workers N` (child processes
+over locus shards, merged), with `--distributed` (ranks of a
+torch.distributed gloo group, see parallel/distributed.py) and `--profile
+DIR` (torch.profiler).  Only
 `--platform` is refused, in favour of `--device`.  Nothing falls back: a
 failed kernel, child, rank or trace ends the run with a non-zero exit.
 """
@@ -158,7 +160,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="Force a JAX platform (e.g. cpu); float64 requires cpu")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="Torch device for the alignment kernels "
-                         "(default cuda; never falls back to the CPU)")
+                         "(default cuda: every visible card takes a shard "
+                         "of each batched dispatch; never falls back to "
+                         "the CPU)")
     return ap
 
 
@@ -370,15 +374,19 @@ def process_group(args):
 
 
 # ------------------------------------------------------------------- run
-def run(argv=None):
+def run(argv=None, devices=None):
     """run_args() on the parsed `argv`."""
-    return run_args(build_parser().parse_args(argv))
+    return run_args(build_parser().parse_args(argv), devices)
 
 
-def run_args(args):
+def run_args(args, devices=None):
     """Run the pooled, batched or (`--batch-loci 0`) sequential pipeline,
     as one rank of a process group with `--distributed`; returns
-    (pipeline, this process's counters).  Raises UsageError for a refused
+    (pipeline, this process's counters).  The batched runs shard each
+    dispatch over `devices` (torch devices, repeats allowed: several shards
+    may share one card or the CPU), by default every visible card of
+    `--device cuda` (a `--distributed` rank's own card); the sequential
+    run and the device EM use the first.  Raises UsageError for a refused
     command line; device and kernel errors propagate."""
     refuse_unported(args)
     final_outputs = (args.str_vcf, args.stutter_out, args.viz_out)
@@ -469,16 +477,17 @@ def run_args(args):
                                       device, worker_spec,
                                       n_workers=host_workers,
                                       batch_size=args.batch_loci,
-                                      full_command=command)
+                                      full_command=command, devices=devices)
             elif args.batch_loci > 0:
                 from .parallel.executor import run_batched
                 counters = run_batched(pipeline, args.regions, args.str_vcf,
                                        device, batch_size=args.batch_loci,
-                                       full_command=command)
+                                       full_command=command, devices=devices)
             else:
                 from .pipeline.sequential import run_sequential
-                counters = run_sequential(pipeline, args.regions, args.str_vcf,
-                                          device, full_command=command)
+                counters = run_sequential(
+                    pipeline, args.regions, args.str_vcf,
+                    devices[0] if devices else device, full_command=command)
         logger.quiet = args.silent
         logger.log(pipeline.timer.summary())
         vals = [counters.genotype_success, counters.genotype_fail,

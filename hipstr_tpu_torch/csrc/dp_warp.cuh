@@ -1,5 +1,5 @@
 // Warp-per-chain rows of the forward DP (segment.cu, K2; flank_scan.cu, K4;
-// segment_scan.cu, K3).
+// segment_scan.cu, K3), and their per-device shared-memory attribute.
 //
 // One warp runs one chain (a read pool against a haplotype): thread t holds
 // the V = L/32 consecutive read lanes j = t*V .. t*V+V-1 of the row state
@@ -337,6 +337,31 @@ __device__ __forceinline__ void stutter_row(T (&m)[V], T* sM, const T* sE,
     }
     m[v] = mx + xlog(sm);
   }
+}
+
+// Dynamic shared memory above 48 KB, allowed on each device.
+// cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize)
+// acts on the calling thread's current device only, and one process may
+// launch a kernel instance on several cards (the batched dispatch is
+// sharded over every visible card, parallel/executor.py).  So each
+// instance keeps what it has allowed per device, indexed by cudaGetDevice;
+// the wrapper (kernels.launch) makes the tensors' card the current device.
+constexpr int kMaxDevices = 64;
+
+// Allow `bytes` of dynamic shared memory to `kern` on the current device,
+// unless `allowed` (the instance's record, zero-initialised, one entry per
+// device) says it already has at least that much there.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kern, int bytes, int (&allowed)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (bytes <= allowed[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes);
+  if (e == cudaSuccess) allowed[dev] = bytes;
+  return e;
 }
 
 }  // namespace dpw

@@ -46,6 +46,8 @@ namespace {
 constexpr int kMaxLanes = 512;
 constexpr int kUnits = 6;            // max_units: artifacts -6p .. +6p
 constexpr int kND = 2 * kUnits + 1;  // 13
+// dynamic shared memory a block may use without cudaFuncSetAttribute
+constexpr size_t kDefaultSmem = 48 * 1024;
 
 __device__ __forceinline__ float xexp(float x) { return expf(x); }
 __device__ __forceinline__ double xexp(double x) { return exp(x); }
@@ -264,7 +266,14 @@ int launch(const void* codes, const void* blw, const void* blc,
   if (G == 0 || O == 0 || P == 0) return 0;
   if (L % 32 || L > kMaxLanes) return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid(P, O, G);
+  // K1 sets no shared-memory attribute (K2, K3 and K4 do, per device:
+  // dp_warp.cuh's allow_smem), so its block stays within the 48 KB allowed
+  // without one: the table and E0 take at
+  // most (kRows + 1) * L * sizeof(T) = 8 * 512 * 8 = 32 KB (float64,
+  // L = 512), which leaves room for Bmax <= 4096 repeat characters there;
+  // ops/emission.py raises before a launch past it.
   const size_t smem = (kRows + 1) * L * sizeof(T) + Bmax * sizeof(int);
+  if (smem > kDefaultSmem) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* c = static_cast<const int*>(codes);
   const T* w = static_cast<const T*>(blw);

@@ -201,13 +201,9 @@ int launch_v(const void* const* a, void* Mcol, int P, int H, int R, int sr,
   if (smem_bytes<T, V, kShared>(W, R) > static_cast<size_t>(smem)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  static int configured = 0;  // dynamic shared memory allowed so far
-  if (smem > configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    configured = smem;
-  }
+  static int allowed[dpw::kMaxDevices] = {};  // per device, by index
+  const cudaError_t e = dpw::allow_smem(kern, smem, allowed);
+  if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid((H + W - 1) / W, P);
   kern<<<grid, W * 32, smem, stream>>>(
       static_cast<const int*>(a[0]), static_cast<const T*>(a[1]),

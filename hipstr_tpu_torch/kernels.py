@@ -13,8 +13,11 @@ the histogram of each kernel's launch shapes: (G, O, P, L, Bmax) for
 emission (K1), (G, H, P, L, R, O) for segment (K2), (P, H, L, n_rows) for
 flank_scan (K4) and (P, H, L, R, O) for segment_scan (K3).  Only the
 wrappers that launch a kernel add to them, right after the launch.
-`DeviceError` marks a failure of device work (a build, a launch, a
-transfer) that must end a run rather than fail one locus.
+`launch` runs a kernel on the card its tensors lie on, which need not be
+the runtime's current device: one process may dispatch to several cards
+(parallel/executor.py).  `DeviceError` marks a failure of device work (a
+build, a launch, a transfer) that must end a run rather than fail one
+locus.
 """
 
 from __future__ import annotations
@@ -159,8 +162,22 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def stream() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+def stream(device: torch.device) -> ctypes.c_void_p:
+    """The current stream of `device`, the card the kernel's tensors lie
+    on (not that of the runtime's current device)."""
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def launch(name: str, dtype: torch.dtype, device: torch.device, shape: tuple,
+           *args) -> None:
+    """Launch kernel `name` on `device`, the card its tensors lie on: on
+    that card's current stream, with the card made the runtime's current
+    device for the call (the launch and the kernels' cudaFuncSetAttribute
+    act on the current device).  Raises on a failed launch; counts it."""
+    fn = launcher(name, dtype)
+    with torch.cuda.device(device):
+        rc = fn(*args, stream(device))
+    check_launch(name, rc, shape)
 
 
 def check_lanes(name: str, dtype: torch.dtype, L: int) -> None:

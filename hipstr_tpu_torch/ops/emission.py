@@ -18,6 +18,16 @@ from .stutter_emission import stutter_emissions_plain
 
 MAX_UNITS = 6
 ND = 2 * MAX_UNITS + 1
+# csrc/emission.cu sets no shared-memory attribute: a block keeps to the
+# 48 KB allowed without one (its kDefaultSmem)
+DEFAULT_SMEM = 48 * 1024
+SCORE_ROWS = 8           # five read codes, blw, blc, and E0
+
+
+def emission_smem(L: int, Bmax: int, itemsize: int) -> int:
+    """Bytes of dynamic shared memory of one K1 block: the score table and
+    E0 ([8][L] values) and the repeat allele (Bmax ints)."""
+    return SCORE_ROWS * L * itemsize + 4 * Bmax
 
 
 def stutter_emissions(codes, blw, blc, brev, blen, periods):
@@ -38,6 +48,11 @@ def stutter_emissions(codes, blw, blc, brev, blen, periods):
     O, Bmax = brev.shape[1], brev.shape[2]
     dev, dtype = codes.device, blc.dtype
     kernels.check_lanes("stutter_emissions", dtype, L)
+    smem = emission_smem(L, Bmax, blc.element_size())
+    if smem > DEFAULT_SMEM:
+        raise ValueError(f"stutter_emissions: L={L}, Bmax={Bmax} need "
+                         f"{smem} bytes of shared memory, over K1's "
+                         f"{DEFAULT_SMEM}")
     for name, t, dt, shape in (
             ("codes", codes, torch.int32, (G, P, L)),
             ("blw", blw, dtype, (G, P, L)), ("blc", blc, dtype, (G, P, L)),
@@ -46,10 +61,9 @@ def stutter_emissions(codes, blw, blc, brev, blen, periods):
             ("periods", periods, torch.int32, (G,))):
         kernels.check_cuda_tensor(name, t, dt, shape, dev)
     E = torch.empty((G, O, ND, P, L), dtype=dtype, device=dev)
-    fn = kernels.launcher("emission", dtype)
-    rc = fn(kernels.ptr(codes), kernels.ptr(blw), kernels.ptr(blc),
-            kernels.ptr(brev), kernels.ptr(blen), kernels.ptr(periods),
-            kernels.ptr(E), ctypes.c_int(G), ctypes.c_int(O), ctypes.c_int(P),
-            ctypes.c_int(L), ctypes.c_int(Bmax), kernels.stream())
-    kernels.check_launch("emission", rc, (G, O, P, L, Bmax))
+    kernels.launch("emission", dtype, dev, (G, O, P, L, Bmax),
+                   kernels.ptr(codes), kernels.ptr(blw), kernels.ptr(blc),
+                   kernels.ptr(brev), kernels.ptr(blen), kernels.ptr(periods),
+                   kernels.ptr(E), ctypes.c_int(G), ctypes.c_int(O),
+                   ctypes.c_int(P), ctypes.c_int(L), ctypes.c_int(Bmax))
     return E

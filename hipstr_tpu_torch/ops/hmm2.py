@@ -253,14 +253,12 @@ def segment_kernel(codes, blw, blc, C, Csh, last_col, row_char, m2m, m2i,
             ("bounds", bounds, i32, (G, 4))):
         kernels.check_cuda_tensor(name, t, dt, shape, dev)
     Mcol = torch.empty((G, H, R, P), dtype=dtype, device=dev)
-    fn = kernels.launcher("segment", dtype)
     ptrs = [kernels.ptr(t) for t in (codes, blw, blc, C, Csh, last_col,
                                      row_char, m2m, m2i, m2d, E, hap_opt,
                                      shift, lpmf_h, bounds, Mcol)]
     ints = [ctypes.c_int(v) for v in (G, H, P, L, R, O, nD, sr, geom.warps,
                                       geom.smem)]
-    rc = fn(*ptrs, *ints, kernels.stream())
-    kernels.check_launch("segment", rc, (G, H, P, L, R, O))
+    kernels.launch("segment", dtype, dev, (G, H, P, L, R, O), *ptrs, *ints)
     return Mcol
 
 

@@ -143,14 +143,12 @@ def flank_scan_kernel(codes, blw, blc, C, Csh, last_col, row_char, row_m2m,
         kernels.check_aligned(name, t)
     Mcol = torch.empty((n_rows, P, H), dtype=dtype, device=dev)
     Mo, Io, Do = (torch.empty_like(M) for _ in range(3))
-    fn = kernels.launcher("flank_scan", dtype)
     ptrs = [kernels.ptr(t) for t in (codes, blw, blc, C, Csh, last_col,
                                      *rows, row_active, M, I, D, Mcol, Mo,
                                      Io, Do)]
     ints = [ctypes.c_int(v) for v in (P, H, L, n_rows, *rows[0].stride(),
                                       geom.warps, geom.smem)]
-    rc = fn(*ptrs, *ints, kernels.stream())
-    kernels.check_launch("flank_scan", rc, (P, H, L, n_rows))
+    kernels.launch("flank_scan", dtype, dev, (P, H, L, n_rows), *ptrs, *ints)
     return Mo, Io, Do, Mcol
 
 
@@ -218,12 +216,10 @@ def segment_scan_kernel(codes, blw, blc, C, Csh, last_col, meta, E, R: int,
                     ("Csh", Csh), ("E", E)):
         kernels.check_aligned(name, t)
     Mcol = torch.empty((R, P, H), dtype=dtype, device=dev)
-    fn = kernels.launcher("segment_scan", dtype)
     ptrs = [kernels.ptr(t) for t in (codes, blw, blc, C, Csh, last_col,
                                      row_char, m2m, m2i, m2d, row_active, E,
                                      hap_opt, rep_len, lpmf, Mcol)]
     ints = [ctypes.c_int(v) for v in (P, H, L, R, nD, sr, period, geom.warps,
                                       geom.smem)]
-    rc = fn(*ptrs, *ints, kernels.stream())
-    kernels.check_launch("segment_scan", rc, (P, H, L, R, O))
+    kernels.launch("segment_scan", dtype, dev, (P, H, L, R, O), *ptrs, *ints)
     return Mcol

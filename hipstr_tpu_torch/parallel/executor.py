@@ -1,4 +1,4 @@
-"""Multi-locus batched execution on one torch device.
+"""Multi-locus batched execution, each dispatch sharded over the devices.
 
 Counterpart of hipstr_tpu/parallel/executor.py.  The host prepares a wave
 of loci (filters, haplotype generation, pooling, seeds), groups them by
@@ -7,6 +7,15 @@ kernel shape, and dispatches every group's read<->haplotype alignment
 on the card the fused posteriors) before fetching any result, so device
 work overlaps host work across waves.  The adaptive per-locus rounds
 regroup and dispatch together.
+
+Every dispatch is split over a list of devices, by default
+`device.local_devices` (every visible card for `cuda`), as the JAX
+executor shards it over its locus mesh: `shard_bounds` cuts the chunk's
+loci into contiguous shards in the mesh's order, each shard runs on its
+own card's stream, and the fetch joins them in locus order.  A list may
+repeat a device, so several shards can share one card or the CPU.  The
+device EM, the sequential path and the de novo contractions stay on the
+first device, as they run on JAX's default device.
 
 Without a stutter model, on the card the stutter models of each wave are
 learned together before its dispatch (ops/em_batched.em_train_batch, in
@@ -31,7 +40,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..device import resolve_dtype
+from ..device import local_devices, resolve_dtype
 from ..io.regions import read_regions
 from ..io.vcf_write import VCFWriter, build_vcf_header
 from ..models.stutter import StutterModel, write_stutter_models
@@ -68,21 +77,36 @@ class LocusWorkItem:
         return (st[:4] + (st[7],), _leaf_shapes(self.arrays))
 
 
+def shard_bounds(G: int, n: int) -> List[Tuple[int, int]]:
+    """[start, stop) of the n contiguous shards of ceil(G / n) loci that a
+    dispatch of G loci is cut into: GSPMD's even split of a locus axis
+    padded to a multiple of n, less the padding.  The port's kernels take
+    runtime extents, so nothing is padded; shards past the last locus are
+    empty."""
+    size = -(-G // n)
+    return [(min(i * size, G), min((i + 1) * size, G)) for i in range(n)]
+
+
 class BatchedAligner:
     """Groups per-locus prepared arrays by kernel shape and dispatches each
-    group as one (or a few) batched device calls, all enqueued before any
-    caller fetches."""
+    group as one (or a few) batched device calls, each sharded over
+    `devices` (a list of torch devices, repeats allowed), all enqueued
+    before any caller fetches.  `dispatches` counts chunks; `card_shards`
+    counts the non-empty shards launched, one K1 and K2 pair per
+    orientation each, so the launch counters count card-shards."""
 
-    def __init__(self, device: torch.device, dtype: str = "float32",
+    def __init__(self, devices: List[torch.device], dtype: str = "float32",
                  batch_size: int = 32, logger=None):
-        self.device = device
+        self.devices = list(devices)
         self.torch_dtype = resolve_dtype(dtype)
         self.batch_size = batch_size
         self.groups: Dict[tuple, List[LocusWorkItem]] = {}
         self.logger = logger
+        self._logged_mesh = False
         # per-shape dispatch accounting: key -> [dispatches, loci]
         self.stats: Dict[tuple, list] = {}
         self.dispatches = 0
+        self.card_shards = 0
         self.round_hist: Dict[int, int] = {}
         self.spec_hits = 0
         self.spec_misses = 0
@@ -127,6 +151,8 @@ class BatchedAligner:
         return out
 
     def _dispatch_chunk(self, chunk: List[LocusWorkItem]):
+        """Enqueue one chunk, shard by shard; returns each non-empty
+        shard's device results in locus order (see `_fetch`)."""
         G = len(chunk)
         st = self.stats.setdefault(tuple(chunk[0].statics[:4]), [0, 0])
         st[0] += 1
@@ -134,13 +160,27 @@ class BatchedAligner:
         self.dispatches += 1
         for it in chunk:
             it.rounds += 1
-        dev, dt = self.device, self.torch_dtype
-        t = locus_to_torch(stack_arrays([it.arrays for it in chunk]), dev, dt)
-        R_f, R_r, sr_f, sr_r = chunk[0].statics[:4]
-        Sm = chunk[0].statics[7]
-        h_real = torch.tensor([it.statics[6] for it in chunk],
+        n = len(self.devices)
+        if n > 1 and not self._logged_mesh and self.logger is not None:
+            self.logger.log(f"Sharding locus batches over {n} devices")
+            self._logged_mesh = True
+        shards = []
+        for dev, (a, b) in zip(self.devices, shard_bounds(G, n)):
+            if a < b:
+                shards.append(self._dispatch_shard(chunk[a:b], dev))
+                self.card_shards += 1
+        return shards
+
+    def _dispatch_shard(self, part: List[LocusWorkItem], dev: torch.device):
+        """K1 -> K2 x 2 -> seed combination (-> fused posteriors) for one
+        shard's loci on `dev`; enqueued on that device's stream."""
+        dt = self.torch_dtype
+        t = locus_to_torch(stack_arrays([it.arrays for it in part]), dev, dt)
+        R_f, R_r, sr_f, sr_r = part[0].statics[:4]
+        Sm = part[0].statics[7]
+        h_real = torch.tensor([it.statics[6] for it in part],
                               dtype=torch.int32).to(dev)
-        periods = torch.tensor([it.statics[4] for it in chunk],
+        periods = torch.tensor([it.statics[4] for it in part],
                                dtype=torch.int32).to(dev)
         LL = batched_forward(*t[:7], R_f, R_r, sr_f, sr_r, h_real, periods, dt)
         if Sm is None:
@@ -233,22 +273,42 @@ def close_outputs(pipeline, writer) -> None:
             write_stutter_models(pipeline._stutter_out, fh)
 
 
-def _fetch(res):
-    if isinstance(res, tuple):
-        return tuple(r.cpu().numpy() for r in res)
-    return res.cpu().numpy()
+def _fetch(shards):
+    """One dispatch's results on the host: each shard's LL (or (LL,
+    log_post, totals)) fetched and joined along the locus axis in shard
+    order, which is locus order."""
+    parts = [tuple(r.cpu().numpy() for r in res) if isinstance(res, tuple)
+             else (res.cpu().numpy(),) for res in shards]
+    out = parts[0] if len(parts) == 1 else tuple(
+        np.concatenate(xs) for xs in zip(*parts))
+    return out if len(out) > 1 else out[0]
+
+
+def dispatch_devices(device: torch.device, devices=None) -> List[torch.device]:
+    """The devices a run's dispatches are sharded over: `devices` when
+    given, else every local device of `device` (device.local_devices)."""
+    out = [torch.device(d) for d in (devices if devices is not None
+                                     else local_devices(device))]
+    if not out or len({d.type for d in out}) > 1:
+        raise ValueError(f"dispatch devices {out}: none, or of mixed types")
+    return out
 
 
 def run_batched(pipeline, regions_bed: str, out_vcf: Optional[str],
                 device: torch.device, batch_size: int = 32,
-                full_command: str = "hipstr-tpu-torch"):
-    """Batched genotyping run on `device`; the JAX executor's outputs."""
+                full_command: str = "hipstr-tpu-torch", devices=None):
+    """Batched genotyping run; the JAX executor's outputs.  Each dispatch
+    is sharded over `devices` (a list of torch devices, repeats allowed;
+    default every local device of `device`); the device EM runs on the
+    first of them."""
     opts = pipeline.opts
     regions = read_regions(regions_bed, opts.max_regions, opts.chrom,
                            opts.locus_shard)
+    devices = dispatch_devices(device, devices)
+    device = devices[0]
     writer = open_vcf(pipeline, out_vcf, full_command)
 
-    aligner = BatchedAligner(device, opts.dtype, batch_size, pipeline.logger)
+    aligner = BatchedAligner(devices, opts.dtype, batch_size, pipeline.logger)
     # records enter the writer in BED order; loci settle out of order
     pending: Dict[int, Tuple] = {}
     next_emit = [0]
@@ -511,7 +571,10 @@ def run_batched(pipeline, regions_bed: str, out_vcf: Optional[str],
         round_hist={int(k): int(v) for k, v in aligner.round_hist.items()},
         spec_hits=int(aligner.spec_hits),
         spec_misses=int(aligner.spec_misses),
-        dispatches=int(aligner.dispatches), **em_stats.as_dict())
+        dispatches=int(aligner.dispatches),
+        card_shards=int(aligner.card_shards), cards=len(set(devices)),
+        shards_per_dispatch=len(devices),
+        **em_stats.as_dict())
 
     close_outputs(pipeline, writer)
     return pipeline.counters

@@ -13,10 +13,10 @@ splits the program along the host/device boundary instead:
     src/seq_stutter_genotyper.cpp:603-671), each on its own core.  They
     never touch the card: `CUDA_VISIBLE_DEVICES` is empty before any CUDA
     call, and each reports at the end that CUDA stayed uninitialised.
-  * the *parent* owns the card and every dispatch: the same shape-grouped
-    batched alignments as the in-process executor (parallel/executor.py)
-    and, without a stutter model on the card, the batched EM of the staged
-    problems.
+  * the *parent* owns the cards and every dispatch: the same shape-grouped
+    batched alignments as the in-process executor (parallel/executor.py),
+    each sharded over the same devices, and, without a stutter model on
+    the card, the batched EM of the staged problems on the first card.
 
 Messages (pickled over pipes):
   parent -> worker: ("prep", idx, region), ("ll", idx, LL[, post, totals]),
@@ -45,8 +45,9 @@ from typing import Dict, List, Optional
 
 from ..io.regions import read_regions
 from .executor import (BatchedAligner, EMStats, LocusWorkItem, close_outputs,
-                       device_em_enabled, device_post_enabled, em_problem,
-                       open_vcf, solve_em, _fetch)
+                       device_em_enabled, device_post_enabled,
+                       dispatch_devices, em_problem, open_vcf, solve_em,
+                       _fetch)
 
 
 # --------------------------------------------------------------- worker side
@@ -261,11 +262,15 @@ class _ReadyItem(LocusWorkItem):
 
 def run_pooled(pipeline, regions_bed: str, out_vcf: Optional[str], device,
                worker_spec: dict, n_workers: int = 3, batch_size: int = 32,
-               full_command: str = "hipstr-tpu-torch"):
-    """Worker-pool analogue of executor.run_batched on `device`; the same
-    VCF.  The parent never runs per-locus host phases: it routes messages,
-    stacks ready tensors, and owns every device call."""
+               full_command: str = "hipstr-tpu-torch", devices=None):
+    """Worker-pool analogue of executor.run_batched; the same VCF.  The
+    parent never runs per-locus host phases: it routes messages, stacks
+    ready tensors, and owns every device call, each dispatch sharded over
+    `devices` (default every local device of `device`) and the device EM
+    on the first of them."""
     opts = pipeline.opts
+    devices = dispatch_devices(device, devices)
+    device = devices[0]
     em_device = device_em_enabled(opts, device)
     worker_spec = dict(worker_spec, device_post=device_post_enabled(device),
                        device_em=em_device)
@@ -277,7 +282,7 @@ def run_pooled(pipeline, regions_bed: str, out_vcf: Optional[str], device,
 
     ctx = mp.get_context("spawn")
     conns, procs = [], []
-    aligner = BatchedAligner(device, opts.dtype, batch_size, pipeline.logger)
+    aligner = BatchedAligner(devices, opts.dtype, batch_size, pipeline.logger)
     em_stats = EMStats()
     ready: List[_ReadyItem] = []
     em_jobs: List[tuple] = []        # (idx, worker, EMProblem)
@@ -551,6 +556,9 @@ def run_pooled(pipeline, regions_bed: str, out_vcf: Optional[str], device,
         for row in sorted(viz_records, key=lambda r: (r[0], r[1])):
             pipeline.viz_writer.add(*row)
     close_outputs(pipeline, writer)
-    pipeline.last_run_stats = dict(dispatches=int(aligner.dispatches),
-                                   workers=reports, **em_stats.as_dict())
+    pipeline.last_run_stats = dict(
+        dispatches=int(aligner.dispatches),
+        card_shards=int(aligner.card_shards), cards=len(set(devices)),
+        shards_per_dispatch=len(devices), workers=reports,
+        **em_stats.as_dict())
     return pipeline.counters

@@ -9,20 +9,21 @@ Counterpart of tools/soak.py.  `generate` writes sim.bam, sim.fa,
 regions.bed and snps.vcf, byte for byte those of the JAX soak, one locus
 of reads in memory at a time; an existing dataset of the same size in
 `outdir` (default build/soak under the repository) is reused.  `run`
-genotypes it with the production batched executor on an explicit device,
-the uncompressed snps.vcf passed as PipelineOptions.snp_vcf, the default
-stutter model and float32, as the JAX soak does; `--em` drops the model
-(each locus's model is learned), `--host-workers N` (N > 1) runs the host
-worker pool; `run` also takes the dtype, a locus cap and `batch_size` 0
-(the sequential path).  A sampler thread
-reads the loci settled in BED order (`pipeline.loci_done`): every
-`window_s` seconds it closes a throughput window, and every `band` loci a
-band (loci/s, its slowest and fastest window, the process's RSS and max
-RSS, the card's allocated and peak memory).  Prints the band table, then
-one JSON line: loci, success, fail, wall, loci/s, the bands, max RSS,
-peak device MiB, the K1/K2 launches and their shape histogram, the device
-(card name and power limit, host CPU).  A pooled run spawns its workers:
-call `run` from under a `__main__` guard.
+genotypes it with the production batched executor on an explicit device
+(each dispatch sharded over every visible card of it), the uncompressed
+snps.vcf passed as PipelineOptions.snp_vcf, the default stutter model and
+float32, as the JAX soak does; `--em` drops the model (each locus's model
+is learned), `--host-workers N` (N > 1) runs the host worker pool; `run`
+also takes the dtype, a locus cap and `batch_size` 0 (the sequential
+path).  A sampler thread reads the loci settled in BED order
+(`pipeline.loci_done`): every `window_s` seconds it closes a throughput
+window, and every `band` loci a band (loci/s, its slowest and fastest
+window, the process's RSS and max RSS, the allocated and peak memory of
+the fullest card).  Prints the band table, then one JSON line: loci,
+success, fail, wall, loci/s, the bands, max RSS, peak device MiB, the
+dispatches and card-shards, the K1/K2 launches and their shape histogram,
+the device (card name and power limit, `cards`, host CPU).  A pooled run
+spawns its workers: call `run` from under a `__main__` guard.
 """
 
 from __future__ import annotations
@@ -40,8 +41,9 @@ import time
 import torch
 
 from .. import kernels
-from ..bench import DEFAULT_MODEL, device_info, max_rss_mb, synchronize
-from ..device import resolve
+from ..bench import (DEFAULT_MODEL, device_info, max_rss_mb,
+                     peak_device_mib, reset_peak_device, synchronize)
+from ..device import local_devices, resolve
 from ..io.bam import BamWriter
 from ..io.fasta import write_fasta
 from ..models.stutter import StutterModel
@@ -149,6 +151,7 @@ class Sampler:
     def __init__(self, pipeline, device, window_s: float, band: int,
                  n_loci: int, log=print):
         self.pipeline, self.device = pipeline, device
+        self.cards = local_devices(device)
         self.window_s, self.band, self.n_loci = window_s, band, n_loci
         self.log = log
         self.windows = []      # (loci done at the close, loci/s)
@@ -174,10 +177,9 @@ class Sampler:
         mem = dict(rss_mb=current_rss_mb(), max_rss_mb=max_rss_mb(),
                    device_mib=None, peak_device_mib=None)
         if self.device.type == "cuda":
-            mem["device_mib"] = torch.cuda.memory_allocated(
-                self.device) / 2 ** 20
-            mem["peak_device_mib"] = torch.cuda.max_memory_allocated(
-                self.device) / 2 ** 20
+            mem["device_mib"] = max(torch.cuda.memory_allocated(card)
+                                    for card in self.cards) / 2 ** 20
+            mem["peak_device_mib"] = peak_device_mib(self.device)
         return mem
 
     def _close_band(self, done: int, t: float) -> None:
@@ -232,8 +234,7 @@ def run(outdir: str, device: torch.device, *, dtype: str = "float32",
     launches0 = dict(kernels.LAUNCHES)
     shapes0 = {k: kernels.SHAPES[k].copy() for k in ("emission", "segment")}
     synchronize(device)
-    if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(device)
+    reset_peak_device(device)
     with Sampler(p, device, window_s, band, n_loci, log) as sampler:
         if batch_size == 0:
             from ..pipeline.sequential import run_sequential
@@ -253,8 +254,7 @@ def run(outdir: str, device: torch.device, *, dtype: str = "float32",
     wall = time.perf_counter() - sampler.t0
     stats = getattr(p, "last_run_stats", None) or {}
     shapes = {k: kernels.SHAPES[k] - shapes0[k] for k in shapes0}
-    peak = (torch.cuda.max_memory_allocated(device) / 2 ** 20
-            if device.type == "cuda" else None)
+    peak = peak_device_mib(device)
     return dict(
         loci=n_loci, success=counters.genotype_success,
         fail=counters.genotype_fail, em_fail=counters.em_fail,
@@ -267,6 +267,7 @@ def run(outdir: str, device: torch.device, *, dtype: str = "float32",
         device_wait_s=p.timer.totals.get("Device fetch", 0.0),
         worker_start_s=p.timer.totals.get("Worker start", 0.0),
         dispatches=stats.get("dispatches"),
+        card_shards=stats.get("card_shards"),
         launches={k: kernels.LAUNCHES[k] - launches0[k] for k in launches0},
         launch_shapes={k: [[list(s), c] for s, c in
                            h.most_common(TOP_SHAPES)]

@@ -41,8 +41,8 @@ JAX_KEYS = {"metric", "value", "unit", "vs_baseline", "n_loci", "success",
 PORT_KEYS = {"fail", "host_workers", "runs", "worker_start_s",
              "loci_per_sec_runs", "loci_per_sec_spread",
              "shallow_loci_per_sec_runs", "shallow_loci_per_sec_spread",
-             "max_rss_mb", "peak_device_mib", "dispatches", "launches",
-             "device"}
+             "max_rss_mb", "peak_device_mib", "dispatches", "card_shards",
+             "launches", "device"}
 
 
 def import_jax_tool(name: str):
@@ -89,6 +89,7 @@ def test_bench_prints_one_json_line():
             res["shallow_fail"]) == (2, 2, 0)
     assert res["value"] == res["loci_per_sec_runs"][0] > 0
     assert res["platform"] == "cpu" == res["device"]["platform"]
+    assert res["device"]["cards"] == 1
     assert res["host_workers"] == 1 and res["runs"] == 1
     # the CPU run names no device time: not measured there
     assert res["kernel_ms_per_locus"] is None and res["fetch_ms"] is None
@@ -96,6 +97,7 @@ def test_bench_prints_one_json_line():
     assert res["kernel_shapes"]["P"] > 0
     # warm + timed passes of both workloads, and the two kernel timings
     assert res["dispatches"] >= 2 * 2 + 2
+    assert res["card_shards"] == res["dispatches"]      # one device
     assert res["launches"] == dict(emission=0, segment=0, flank_scan=0,
                                    segment_scan=0)
 
@@ -141,3 +143,23 @@ def test_decode_bench_bam_and_cram(tmp_path):
     assert res["mb_per_s"] > 0
     res = decode_bench.main(["--cram"])
     assert res["format"] == "cram" and res["records"] == 20
+
+
+def test_peak_reset_initialises_cuda_first(monkeypatch):
+    """A fresh bench or soak process resets the peak memory of every card
+    by index, which fails unless CUDA was initialised first."""
+    calls = []
+    monkeypatch.setattr(torch.cuda, "init", lambda: calls.append("init"))
+
+    def reset(card):
+        if "init" not in calls:
+            raise RuntimeError("Invalid device argument")
+        calls.append(card)
+
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", reset)
+    monkeypatch.setattr(bench, "local_devices", lambda device: [
+        torch.device("cuda", 0), torch.device("cuda", 1)])
+    bench.reset_peak_device(torch.device("cuda"))
+    assert calls == ["init", torch.device("cuda", 0), torch.device("cuda", 1)]
+    bench.reset_peak_device(torch.device("cpu"))
+    assert len(calls) == 3

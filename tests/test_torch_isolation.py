@@ -80,9 +80,10 @@ def test_the_scan_sees_lazy_imports(tmp_path):
      "hipstr_tpu_torch.scripts.get_stutter_models"],
     ["hipstr_tpu_torch.bench", "hipstr_tpu_torch.tools.soak",
      "hipstr_tpu_torch.tools.profile_host",
-     "hipstr_tpu_torch.tools.decode_bench"]],
+     "hipstr_tpu_torch.tools.decode_bench"],
+    ["hipstr_tpu_torch.graft_entry"]],
     ids=["entry-points", "denovo-entry-points", "scale-out-and-scripts",
-         "measuring-entry-points"])
+         "measuring-entry-points", "graft-entry"])
 def test_importing_the_port_loads_no_jax(modules):
     script = ("import importlib, sys\n"
               f"for m in {modules!r}:\n"

@@ -83,7 +83,8 @@ def test_soak_cli_prints_the_band_table_and_json(tmp_path):
     res = json.loads(lines[-1])
     assert (res["loci"], res["success"], res["fail"]) == (3, 3, 0)
     assert [b["band"] for b in res["bands"]] == ["0-2", "2-3"]
-    assert res["device"]["platform"] == "cpu"
+    assert res["device"]["platform"] == "cpu" and res["device"]["cards"] == 1
+    assert res["card_shards"] == res["dispatches"] > 0
     assert res["peak_device_mib"] is None and res["max_rss_mb"] > 0
     assert "| 0-2 |" in proc.stdout and "| 2-3 |" in proc.stdout
     assert os.path.exists(tmp_path / "dataset.json")
