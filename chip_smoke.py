@@ -20,10 +20,19 @@ Phases (any failure raises and exits non-zero):
      launched at least twice per dispatch, K3 and K4 never, JAX never
      imported;
   5. the sequential slice: the same run with --batch-loci 0; 60/60
-     genotyped, per aligner call two K1 and four K4 launches, no K2 or K3;
-  6. the two per-locus modes on the 60 real loci: the first-round
-     alignment of each in float64, flank mode (K4) against fused mode
-     (K3), LL within 1e-8;
+     genotyped, per aligner call two K1 and two K3 launches (fused mode,
+     the sequential path's), no K2 or K4;
+  6. the two per-locus modes, flank (K1 + K4, the stutter and
+     forced-match rows in plain torch) against fused (K1 + K3): (a) the
+     first-round alignment of each of the 60 real loci in float32 and
+     float64, LL within 1e-8 (float64) or K3's float32 tolerance, ms per
+     aligner call of each mode and type, and each mode's device kernels
+     and copies per call under torch.profiler; (b) the sequential slice
+     through the CLI in float32, 3 runs of each mode in turn (flank mode
+     by a wrapper around the genotyper's aligner call, `flank_mode`):
+     loci/s and wall of each run, launches per aligner call, the fused
+     VCF equal to phase 5's and held to the flank VCF (genotype and
+     integer fields equal, floats within the drift bands);
   7. the stutter EM: the sequential run without a stutter model (host EM)
      on 8 loci; then (a) the batched slice of phase 4 without a stutter
      model, in-process: the models learned on the card (the device EM),
@@ -41,11 +50,11 @@ Phases (any failure raises and exits non-zero):
      model, in-process and pooled, against
      tests/data/torch_port_ref_em_f64.vcf;
   8. float64 cross-check: the port's VCF on the dataset behind
-     tests/data/torch_port_ref_f64.vcf, batched and sequential, against
-     that file;
+     tests/data/torch_port_ref_f64.vcf, batched (K1 + K2) and sequential
+     (K1 + K3), against that file;
   9. real shapes: each kernel at the two launch shapes its path used most
-     (K1 and K2 from phase 4's histogram, K4 from phase 5's, K3 from the
-     fused mode over the slice's loci), on the arguments that path really
+     (K1 and K2 from phase 4's histogram, K3 from phase 5's, K4 from the
+     flank mode over the slice's loci), on the arguments that path really
      passed (captured in a second run), float32 and float64: against its
      plain version, CUDA-event times over 20 launches with L2 warm and with
      L2 flushed (64 MiB written before each launch), and the bound the
@@ -55,7 +64,7 @@ Phases (any failure raises and exits non-zero):
      batched and sequential and in float32 batched, each held to its
      float64 anchor tests/data/torch_port_golden_<name>_f64.vcf (records
      that differ logged, every record within the drift bands), fail 0,
-     K1 + K2 (batched) or K1 + K4 (sequential) launched and no other;
+     K1 + K2 (batched) or K1 + K3 (sequential) launched and no other;
  11. de novo: (a) the de novo golden suite's trio genotyped in float64
      against tests/data/torch_port_denovo_str_f64.vcf, then the
      DenovoFinder's trio and family scans with --device-batch 256
@@ -82,7 +91,7 @@ Phases (any failure raises and exits non-zero):
      (c) `--distributed` with two gloo ranks on the one card: the same
      body, the summed summary on both ranks, no shard file left; (d)
      `--profile` on the slice, batched and sequential: the VCF equal to
-     phases 4 and 5's, the trace holding K1 + K2 or K1 + K4 events;
+     phases 4 and 5's, the trace holding K1 + K2 or K1 + K3 events;
  13. the measuring entry points: (a) `hipstr_tpu_torch.bench --runs 3`
      (default model, shallow and deep) in-process and with the default
      --host-workers: every locus genotyped, two K1 and two K2 launches per
@@ -92,8 +101,9 @@ Phases (any failure raises and exits non-zero):
      30 reads with phased SNPs, float32 in-process: every locus
      genotyped, max RSS and peak device memory flat from locus 500 (no
      100-locus band over 1.2x the first), two K1 and two K2 launches per
-     dispatch; its 2-locus prefix in float64, batched and sequential,
-     byte-identical to tests/data/torch_port_soak_f64.vcf, and the float32
+     dispatch; its 2-locus prefix in float64, batched (K1 + K2) and
+     sequential (K1 + K3), byte-identical to
+     tests/data/torch_port_soak_f64.vcf, and the float32
      run's first 2 records equal to it in genotypes and integer fields;
      (c) K1 and K2 on the soak's arguments at their most frequent launch
      shape (captured during (b)), float32 and float64, against the plain
@@ -173,6 +183,7 @@ DEEP = dict(MAIN, P=256)
 WIDE = (dict(MAIN, G=8, P=16, L=384), dict(MAIN, G=8, P=16, L=512))
 SCAN_DEEP_P = 1024   # K3/K4 deep shape: the largest pool bucket
 MODES_TOL = 1e-8     # flank vs fused LL, float64 (rtol and atol)
+SEQ_MODE_RUNS = 3    # phase 6: sequential slice runs of each mode, in turn
 EM_LOCI = 8
 EM_POOL_WORKERS = 3
 EM_BATCH = 32        # the slice's --batch-loci: the EM's wave size
@@ -671,7 +682,8 @@ def phase_sequential(tmp, device_name="cuda"):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
-    shapes = {k: kernels.SHAPES[k].copy() for k in ("emission", "flank_scan")}
+    shapes = {k: kernels.SHAPES[k].copy()
+              for k in ("emission", "segment_scan")}
     log_shapes("sequential", shapes)
     n = hap_aligner.CALLS - calls0
     log(f"sequential: success={counters.genotype_success} "
@@ -681,7 +693,7 @@ def phase_sequential(tmp, device_name="cuda"):
     log(pipeline.timer.summary())
     if counters.genotype_success != SLICE_LOCI or counters.genotype_fail:
         raise AssertionError("sequential run did not genotype every locus")
-    want = dict(emission=2 * n, flank_scan=4 * n, segment=0, segment_scan=0)
+    want = dict(emission=2 * n, segment_scan=2 * n, segment=0, flank_scan=0)
     if n < SLICE_LOCI or launches != want:
         raise AssertionError(f"sequential: {n} aligner calls, launches "
                              f"{launches}, expected {want}")
@@ -717,51 +729,153 @@ def slice_loci(tmp):
     return loci
 
 
-def phase_modes(tmp, device):
-    """Flank mode (K4) against fused mode (K3) on the first-round
-    alignment of every locus of the slice, float64."""
+@contextlib.contextmanager
+def flank_mode():
+    """While active, the genotyper's aligner calls run flank mode (K1 + K4,
+    the stutter and forced-match rows in plain torch) in place of the
+    sequential path's fused mode (K1 + K3)."""
+    import functools
+    from hipstr_tpu_torch.pipeline import genotyper
+    orig = genotyper.compute_hap_log_likelihoods
+    genotyper.compute_hap_log_likelihoods = functools.partial(orig,
+                                                              mode="flank")
+    try:
+        yield
+    finally:
+        genotyper.compute_hap_log_likelihoods = orig
+
+
+def want_launches(mode: str, n: int) -> dict:
+    """Kernel launches of n aligner calls in `mode`: two K1 and two K3
+    (fused) or four K4 (flank: two scans an orientation)."""
+    return dict(emission=2 * n, segment=0,
+                segment_scan=2 * n if mode == "fused" else 0,
+                flank_scan=4 * n if mode == "flank" else 0)
+
+
+def phase_modes(tmp, device, device_name="cuda"):
+    """Flank mode (K1 + K4) against fused mode (K1 + K3, the sequential
+    path's): (a) per aligner call, on the first-round alignment of every
+    locus of the slice, float32 and float64, and traced; (b) the
+    sequential slice through the CLI in float32, SEQ_MODE_RUNS runs of
+    each mode in turn."""
     import numpy as np
     import torch
-    from hipstr_tpu_torch import kernels
-    from hipstr_tpu_torch.pipeline.hap_aligner import \
-        compute_hap_log_likelihoods
+    from torch.profiler import ProfilerActivity, profile
+    from hipstr_tpu_torch import cli, kernels
+    from hipstr_tpu_torch.pipeline import hap_aligner
     loci = slice_loci(tmp)
-    modes = ("flank", "fused")
-    for mode in modes:      # warm-up, not counted
-        compute_hap_log_likelihoods(*loci[0][1], dtype="float64",
-                                    device=device, mode=mode)
-    kernels.reset_launches()
-    seconds = dict.fromkeys(modes, 0.0)
-    worst = 0.0
-    for region, locus in loci:
-        ll = {}
-        for mode in modes:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            # ends in a copy to the host, which waits for the device
-            ll[mode] = compute_hap_log_likelihoods(
-                *locus, dtype="float64", device=device, mode=mode)
-            seconds[mode] += time.perf_counter() - t0
-        diff = np.abs(ll["flank"] - ll["fused"])
-        if not np.all(diff <= MODES_TOL + MODES_TOL * np.abs(ll["flank"])):
-            raise AssertionError(f"modes differ by {diff.max()} at "
-                                 f"{region}")
-        worst = max(worst, float(diff.max()))
-    launches = dict(kernels.LAUNCHES)
     n = len(loci)
-    want = dict(emission=4 * n, flank_scan=4 * n, segment=0,
-                segment_scan=2 * n)
+    modes = ("flank", "fused")
+    dtypes = ("float32", "float64")
+    for dtype in dtypes:        # warm-up, not counted
+        for mode in modes:
+            hap_aligner.compute_hap_log_likelihoods(
+                *loci[0][1], dtype=dtype, device=device, mode=mode)
+    kernels.reset_launches()
+    ms, worst = {}, {}
+    for dtype in dtypes:
+        rtol, atol = ((MODES_TOL, MODES_TOL) if dtype == "float64"
+                      else TOL[("segment_scan", "float32")])
+        seconds = dict.fromkeys(modes, 0.0)
+        worst[dtype] = 0.0
+        for i, (region, locus) in enumerate(loci):
+            ll = {}
+            for mode in modes if i % 2 else modes[::-1]:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                # ends in a copy to the host, which waits for the device
+                ll[mode] = hap_aligner.compute_hap_log_likelihoods(
+                    *locus, dtype=dtype, device=device, mode=mode)
+                seconds[mode] += time.perf_counter() - t0
+            diff = np.abs(ll["flank"] - ll["fused"])
+            if not np.all(diff <= atol + rtol * np.abs(ll["flank"])):
+                raise AssertionError(f"modes {dtype} differ by {diff.max()} "
+                                     f"at {region}")
+            worst[dtype] = max(worst[dtype], float(diff.max()))
+        ms[dtype] = {m: 1e3 * seconds[m] / n for m in modes}
+        log(f"modes {dtype}: {n} loci, max |LL flank - LL fused| "
+            f"{worst[dtype]:.3e}; ms per aligner call flank "
+            f"{ms[dtype]['flank']:.3f} fused {ms[dtype]['fused']:.3f}")
+    launches = dict(kernels.LAUNCHES)
+    want = {k: len(dtypes) * (want_launches("flank", n)[k]
+                              + want_launches("fused", n)[k])
+            for k in launches}
     if launches != want:
         raise AssertionError(f"modes: launches {launches}, expected {want}")
+    # the device's work per aligner call, float32, by the profiler
+    traced = {}
+    for mode in modes:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _, locus in loci:
+                hap_aligner.compute_hap_log_likelihoods(
+                    *locus, dtype="float32", device=device, mode=mode)
+            torch.cuda.synchronize()
+        busy, kernel_events = device_events(prof)
+        copies = sum(1 for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and e.name.startswith(("Memcpy", "Memset")))
+        traced[mode] = dict(kernels_per_call=kernel_events / n,
+                            copies_per_call=copies / n,
+                            device_busy_ms_per_call=1e3 * busy / n)
+        log(f"modes float32 traced, {mode}: per aligner call "
+            f"{kernel_events / n:.1f} device kernels (the port's "
+            f"{sum(want_launches(mode, 1).values())} among them), "
+            f"{copies / n:.1f} copies and fills, device busy "
+            f"{1e3 * busy / n:.3f} ms")
     check_no_jax()
-    ms = {m: 1e3 * seconds[m] / n for m in modes}
-    log(f"modes: {n} loci, max |LL flank - LL fused| {worst:.3e}; "
-        f"ms per call flank {ms['flank']:.3f} fused {ms['fused']:.3f}; "
-        f"launches={launches}")
+    # (b) the sequential slice in float32, each mode in turn
+    runs = {m: [] for m in modes}
+    bodies = {}
+    for i in range(SEQ_MODE_RUNS):
+        for mode in modes if i % 2 == 0 else modes[::-1]:
+            out = f"{tmp}/seq_{mode}_{i}.vcf"
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            calls0 = hap_aligner.CALLS
+            with flank_mode() if mode == "flank" else contextlib.nullcontext():
+                t0 = time.perf_counter()
+                _, counters = cli.run(slice_args(tmp, "sequential",
+                                                 device_name)
+                                      + ["--str-vcf", out])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            calls = hap_aligner.CALLS - calls0
+            launches_run = dict(kernels.LAUNCHES)
+            if (counters.genotype_success, counters.genotype_fail) != (
+                    SLICE_LOCI, 0) or calls < SLICE_LOCI \
+                    or launches_run != want_launches(mode, calls):
+                raise AssertionError(
+                    f"sequential {mode} run {i}: success="
+                    f"{counters.genotype_success} fail="
+                    f"{counters.genotype_fail}, {calls} aligner calls, "
+                    f"launches {launches_run}")
+            body = vcf_body(out)
+            if bodies.setdefault(mode, body) != body:
+                raise AssertionError(f"sequential {mode} run {i}: VCF differs "
+                                     "from the mode's first run")
+            runs[mode].append(dict(loci_per_s=SLICE_LOCI / wall,
+                                   wall_s=wall, aligner_calls=calls))
+            log(f"sequential f32 {mode} run {i}: {SLICE_LOCI / wall:.3f} "
+                f"loci/s, wall {wall:.3f} s, {calls} aligner calls, "
+                f"launches {launches_run}")
+    if bodies["fused"] != vcf_body(f"{tmp}/seq.vcf"):
+        raise AssertionError("sequential fused VCF differs from phase 5's")
+    same = hold_bodies("sequential f32 fused vs flank", bodies["fused"],
+                       bodies["flank"])
+    check_no_jax()
+    seq = {m: dict(runs=r, median_loci_per_s=float(np.median(
+        [x["loci_per_s"] for x in r]))) for m, r in runs.items()}
+    log(f"sequential f32 median loci/s: flank "
+        f"{seq['flank']['median_loci_per_s']:.3f}, fused "
+        f"{seq['fused']['median_loci_per_s']:.3f}; fused VCF {same}/"
+        f"{SLICE_LOCI} records byte-identical to the flank VCF")
     loci_inputs = [locus for _, locus in loci]
-    return launches, loci_inputs, dict(loci=n, max_abs_diff=worst,
-                                       flank_ms=ms["flank"],
-                                       fused_ms=ms["fused"])
+    return launches, loci_inputs, dict(
+        loci=n, max_abs_diff=worst, ms_per_call=ms, traced_f32=traced,
+        sequential_f32=seq, fused_vs_flank_byte_identical=same)
 
 
 # ---------------------------------------------------------------- phase 7
@@ -1185,19 +1299,22 @@ def phase_em_reference(tmp, device_name="cuda"):
 
 
 def phase_reference(tmp, device_name="cuda"):
-    """The float64 VCF of the reference dataset, batched and sequential,
-    against tests/data/torch_port_ref_f64.vcf."""
-    from hipstr_tpu_torch import cli
+    """The float64 VCF of the reference dataset, batched (K1 + K2) and
+    sequential (K1 + K3), against tests/data/torch_port_ref_f64.vcf."""
+    from hipstr_tpu_torch import cli, kernels
     from hipstr_tpu_torch.utils.simdata import (REFERENCE_ARGS,
                                                 reference_loci, write_sim)
     write_sim(tmp, reference_loci())
     for label, extra in (("batched", ["--host-workers", "1"]),
                          ("sequential", ["--batch-loci", "0"])):
         out = f"{tmp}/ref64_{label}.vcf"
+        kernels.reset_launches()
         cli.run(["--bams", f"{tmp}/sim.bam", "--fasta", f"{tmp}/sim.fa",
                  "--regions", f"{tmp}/regions.bed", "--str-vcf", out,
                  "--dtype", "float64", "--device", device_name, "--silent"]
                 + REFERENCE_ARGS + extra)
+        check_mode_launches(f"f64 {label}", dict(kernels.LAUNCHES),
+                            label == "batched", True)
         hold_to_reference(f"f64 {label}", out, REF_VCF)
 
 # ---------------------------------------------------------------- phase 9
@@ -1449,22 +1566,24 @@ def phase_real_shapes(tmp, device, slice_shapes, seq_shapes, loci):
     with k1, k2:
         cli.run(base + ["--batch-loci", "32", "--host-workers", "1",
                         "--str-vcf", f"{tmp}/cap.vcf"])
-    k4 = Capture(hmm_scan, "flank_scan_kernel", shape_flank_scan,
-                 top(seq_shapes["flank_scan"]))
-    with k4:
-        cli.run(base + ["--batch-loci", "0", "--str-vcf", f"{tmp}/cap0.vcf"])
-    kernels.reset_launches()
-    k3 = Capture(hmm_scan, "segment_scan_kernel", shape_segment_scan)
+    k3 = Capture(hmm_scan, "segment_scan_kernel", shape_segment_scan,
+                 top(seq_shapes["segment_scan"]))
     with k3:
+        cli.run(base + ["--batch-loci", "0", "--str-vcf", f"{tmp}/cap0.vcf"])
+    # K4 leaves the CLI's paths: its shapes are flank mode's on the loci
+    # of phase 6
+    kernels.reset_launches()
+    k4 = Capture(hmm_scan, "flank_scan_kernel", shape_flank_scan)
+    with k4:
         for locus in loci:
             compute_hap_log_likelihoods(*locus, dtype="float32",
-                                        device=device, mode="fused")
-    k3_shapes = kernels.SHAPES["segment_scan"].copy()
-    log_shapes("fused mode", {"segment_scan": k3_shapes})
+                                        device=device, mode="flank")
+    k4_shapes = kernels.SHAPES["flank_scan"].copy()
+    log_shapes("flank mode", {"flank_scan": k4_shapes})
     hists = dict(emission=slice_shapes["emission"],
                  segment=slice_shapes["segment"],
-                 flank_scan=seq_shapes["flank_scan"],
-                 segment_scan=k3_shapes)
+                 flank_scan=k4_shapes,
+                 segment_scan=seq_shapes["segment_scan"])
     table = {
         "emission": (k1, stutter_emissions, stutter_emissions_plain,
                      bound_emission),
@@ -1695,16 +1814,20 @@ def phase_soak(tmp, device):
     want = vcf_body(SOAK_VCF)
     for batch, label in ((32, "batched"), (0, "sequential")):
         out = f"{tmp}/prefix_{label}.vcf"
+        kernels.reset_launches()
         pre = soak.run(tmp, device, dtype="float64", batch_size=batch,
                        max_regions=len(want), out=out, window_s=1e9,
                        log=log)
+        check_mode_launches(f"soak f64 {label} prefix",
+                            dict(kernels.LAUNCHES), batch > 0, True)
         got = vcf_body(out)
         if (pre["success"], pre["fail"]) != (len(want), 0) or got != want:
             hold_bodies(f"soak f64 {label} prefix", got, want)
             raise AssertionError(f"soak f64 {label} prefix: not "
                                  "byte-identical to the anchor")
         log(f"soak f64 {label} prefix: {len(got)} records byte-identical to "
-            f"{os.path.relpath(SOAK_VCF, ROOT)}")
+            f"{os.path.relpath(SOAK_VCF, ROOT)}, launches "
+            f"{dict(kernels.LAUNCHES)}")
     got = vcf_body(f"{tmp}/out.vcf")[:len(want)]
     same = sum(a == b for a, b in zip(got, want))
     if not all(integer_fields_equal(a, b) for a, b in zip(got, want)):
@@ -1770,14 +1893,8 @@ def phase_golden(tmp):
             if counters.genotype_fail:
                 raise AssertionError(f"golden {name} {label}: fail="
                                      f"{counters.genotype_fail}")
-            used, unused = (("emission", "flank_scan"),
-                            ("segment", "segment_scan")) \
-                if "--batch-loci" in extra else \
-                (("emission", "segment"), ("flank_scan", "segment_scan"))
-            if not all(launches[k] for k in used) or any(
-                    launches[k] for k in unused):
-                raise AssertionError(f"golden {name} {label}: launches "
-                                     f"{launches}")
+            check_mode_launches(f"golden {name} {label}", launches,
+                                "--batch-loci" not in extra, True)
             same = hold_to_reference(
                 f"golden {name} {label}", vcf,
                 os.path.join(ROOT, "tests", "data",
@@ -2002,11 +2119,11 @@ def hold_models(label: str, got: str, want: str, learned: dict) -> None:
 
 
 def check_mode_launches(label, launches, batched, genotyped) -> None:
-    """K1 + K2 (batched) or K1 + K4 (sequential) launched when a locus was
+    """K1 + K2 (batched) or K1 + K3 (sequential) launched when a locus was
     genotyped, and no other kernel."""
     used, unused = (("emission", "segment"), ("flank_scan", "segment_scan")) \
-        if batched else (("emission", "flank_scan"), ("segment",
-                                                      "segment_scan"))
+        if batched else (("emission", "segment_scan"), ("segment",
+                                                        "flank_scan"))
     if any(launches[k] for k in unused) or (
             genotyped and not all(launches[k] for k in used)):
         raise AssertionError(f"{label}: launches {launches}")
@@ -2235,7 +2352,7 @@ def phase_profile(tmp, device_name="cuda"):
     for mode, plain, names in (("batched", "slice.vcf",
                                 ("emission", "segment")),
                                ("sequential", "seq.vcf",
-                                ("emission", "flank_scan"))):
+                                ("emission", "segment_scan"))):
         vcf, trace = f"{tmp}/prof_{mode}.vcf", f"{tmp}/trace_{mode}"
         torch.cuda.synchronize()
         kernels.reset_launches()
@@ -2518,8 +2635,9 @@ def main() -> int:
                     "measuring": measuring, "shards": shards,
                     "ptxas": {k: ptxas[k] for k in ("flank_scan",
                                                     "segment_scan")}}))
-    launches.update(flank_scan=seq_launches["flank_scan"],
-                    segment_scan=mode_launches["segment_scan"])
+    # K3 from the sequential path (phase 5), K4 from flank mode (phase 6)
+    launches.update(segment_scan=seq_launches["segment_scan"],
+                    flank_scan=mode_launches["flank_scan"])
     main32 = kres[("main", "float32")]
     summary = {"kernels": []}
     for name, (src, rep) in SOURCES.items():

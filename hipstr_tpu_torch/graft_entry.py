@@ -30,8 +30,8 @@ from .utils.simulate import simulate_locus
 def entry(device: str = "cuda"):
     """(fn, example_args): fn(*example_args) is LL [P, H] of the locus the
     JAX entry point simulates (seed 7, 2 samples x 10 reads, period 3) in
-    float32, through the port's kernels on the card (their plain versions
-    on the CPU); padded rows and columns included."""
+    float32, through the port's kernels on the card (K1 + K3; their plain
+    versions on the CPU); padded rows and columns included."""
     dev = resolve_device(device)
     locus = simulate_locus(seed=7, n_samples=2, reads_per_sample=10,
                            period=3, ref_units=8)
@@ -52,8 +52,10 @@ def entry(device: str = "cuda"):
     R_f, R_r, sr_f, sr_r, period = statics[:5]
 
     def fn(l_seg, r_seg, fw_meta, rev_meta, seed_meta, sc, sq):
+        # the sequential aligner's mode (compute_hap_log_likelihoods)
         return hmm_forward(l_seg, r_seg, fw_meta, rev_meta, seed_meta, sc,
-                           sq, R_f, R_r, period, sr_f, sr_r, torch.float32)
+                           sq, R_f, R_r, period, sr_f, sr_r, torch.float32,
+                           mode="fused")
 
     return fn, locus_to_torch(arrays, dev, torch.float32)
 

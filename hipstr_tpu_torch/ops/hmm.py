@@ -9,9 +9,10 @@ with per-(locus, haplotype) row metadata, the layout of the batched
 segment forward in ops/hmm2.py; `flank_row` and `forced_match_row` also
 take the per-locus [P, H, L] state of `segment_forward`/`hmm_forward`,
 which keep the JAX package's per-locus layout.  On the card the per-locus
-forward runs K1 (ops/emission.py) and either K4 (flank mode: the flank
-rows, with the stutter and forced-match rows in plain torch between its
-launches) or K3 (fused mode: the whole segment), both in ops/hmm_scan.py.
+forward runs K1 (ops/emission.py) and either K3 (fused mode, the
+sequential path's: the whole segment) or K4 (flank mode: the flank rows,
+with the stutter and forced-match rows in plain torch between its
+launches), both in ops/hmm_scan.py.
 """
 
 from __future__ import annotations
@@ -236,15 +237,17 @@ def segment_rows(codes, blw, blc, C, Csh, last_col, meta: HapMeta, E,
 
 
 def segment_forward(seg: SegmentInputs, meta: HapMeta, R: int, period: int,
-                    sr: int, dtype, mode: str = "flank"):
+                    sr: int, dtype, mode: str):
     """One orientation of one locus: (Mcol [R, P, H], seg_logsum [P]).
 
     seg holds codes/quals [P, L] and last_col [P]; meta is one locus's
-    HapMeta ([H, R] rows).  E comes from K1 (G = 1).  mode "flank" (the
-    JAX package's default Pallas mode) scans the flank rows with K4 and
-    keeps the stutter row, with its clipped entry, and the forced-match row
-    in plain torch; mode "fused" runs the whole segment in one K3 launch.
-    On CPU tensors the kernels' plain versions run instead."""
+    HapMeta ([H, R] rows).  E comes from K1 (G = 1).  mode "fused" runs
+    the whole segment in one K3 launch; mode "flank" (the JAX package's
+    default Pallas mode) scans the flank rows with K4 and keeps the
+    stutter row, with its clipped entry, and the forced-match row in plain
+    torch.  The mode has no default here: the sequential path's is
+    pipeline/hap_aligner.compute_hap_log_likelihoods's.  On CPU tensors
+    the kernels' plain versions run instead."""
     # imported here: hmm_scan builds on this module's rows
     from .emission import stutter_emissions
     from .hmm_scan import flank_scan, segment_scan
@@ -272,14 +275,15 @@ def segment_forward(seg: SegmentInputs, meta: HapMeta, R: int, period: int,
 def hmm_forward(l_seg: SegmentInputs, r_seg: SegmentInputs,
                 fw_meta: HapMeta, rev_meta: HapMeta, seed: SeedMeta,
                 seed_codes, seed_quals, R_fw: int, R_rev: int, period: int,
-                sr_fw: int, sr_rev: int, dtype, mode: str = "flank"):
+                sr_fw: int, sr_rev: int, dtype, mode: str):
     """Full forward pass of one locus: LL [P, H] (reference
     HapAligner::process_read + compute_aln_logprob, HapAligner.cpp:573-709,
     :163-231).  The left segment aligns against the forward haplotype, the
     reversed right segment against the reversed haplotype, and the seed
     base marginalises over anchor positions (ops/hmm2.seed_combine with a
-    locus axis of 1).  Padded haplotype columns are computed like real
-    ones; callers slice [:P_real, :H_real]."""
+    locus axis of 1).  `mode` is segment_forward's.  Padded haplotype
+    columns are computed like real ones; callers slice [:P_real,
+    :H_real]."""
     from .hmm2 import seed_combine
     Mcol_fw, l_prob = segment_forward(l_seg, fw_meta, R_fw, period, sr_fw,
                                       dtype, mode)

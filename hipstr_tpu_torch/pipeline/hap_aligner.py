@@ -314,13 +314,15 @@ def use_device(device):
 
 def compute_hap_log_likelihoods(haplotype: Haplotype, seqs, quals, seeds,
                                 dtype: str = "float32", device=None,
-                                mode: str = "flank") -> np.ndarray:
+                                mode: str = "fused") -> np.ndarray:
     """LL[pool, hap] for every read pool against every haplotype
     combination of one locus, on `device` or else the installed one
     (`use_device`); raises when there is neither.  `mode` picks the
-    per-locus forward (ops/hmm.segment_forward).  Packing is host work;
-    any failure from the move to the device through the fetch of LL is
-    raised as DeviceError."""
+    per-locus forward (ops/hmm.segment_forward): "fused" (K1 + K3, the
+    sequential path's, on every device: on the H100 it beat "flank", K1 +
+    K4, per call in float32 and float64, PERF.md §6) or "flank".  Packing
+    is host work; any failure from the move to the device through the
+    fetch of LL is raised as DeviceError."""
     global CALLS
     dev = torch.device(device) if device is not None else _DEVICE
     if dev is None:

@@ -5,8 +5,9 @@ workload).
         [--sort tottime] [--device cuda|cpu] [--out PATH]
 
 Counterpart of tools/profile_host.py.  Writes the bench's dataset, runs it
-once in-process to warm up (kernels built, CUDA context up), then once
-more under cProfile (`hipstr_tpu_torch.bench.run_e2e`, --host-workers 1),
+once in-process to warm up (kernels built, CUDA context up), waits for the
+warm-up's helper threads to end, then runs once more under cProfile
+(`hipstr_tpu_torch.bench.run_e2e`, --host-workers 1),
 and prints the run's loci/s, its timers and the top entries by `--sort`.
 The waits for the card show up under the executor's fetch frames
 (`executor._fetch`, the tensors' `.cpu()`); the rest is host Python.
@@ -19,6 +20,7 @@ import argparse
 import cProfile
 import pstats
 import tempfile
+import threading
 
 from ..bench import run_e2e, write_dataset
 from ..device import resolve
@@ -39,11 +41,22 @@ def main(argv=None) -> pstats.Stats:
     device, _ = resolve(args.device)
     with tempfile.TemporaryDirectory(prefix="hipstr_torch_prof_") as tmp:
         write_dataset(tmp, args.loci, args.reads)
+        before = set(threading.enumerate())
         run_e2e(tmp, device)                           # warm-up
+        # cProfile keeps one call stack for every thread (Python 3.12
+        # profiles them all): a helper thread of the warm-up (run_batched
+        # shuts its pools down without waiting) that returns from frames it
+        # entered before enable() pops the profiled run's frames, whose own
+        # returns then find the stack empty and go uncounted, so
+        # run_batched and its callers drop out of the stats
+        for thread in set(threading.enumerate()) - before:
+            thread.join()
         prof = cProfile.Profile()
         prof.enable()
-        dt, counters, times = run_e2e(tmp, device)
-        prof.disable()
+        try:
+            dt, counters, times = run_e2e(tmp, device)
+        finally:
+            prof.disable()
     times.pop("_run_stats", None)
     print(f"e2e: {args.loci / dt:.2f} loci/s ({1000 * dt / args.loci:.2f} "
           f"ms/locus) on {device}, success={counters.genotype_success} "

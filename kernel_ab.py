@@ -13,8 +13,8 @@ own `chip_smoke.phase_kernels` (every kernel against its plain version at
 the synthetic shapes, with times), and then times its four kernel
 wrappers on arguments that this tree captured once, at each kernel's two
 most frequent launch shapes on its path: K1 and K2 from the batched run
-(the slice of chip_smoke phase 4), K4 from the sequential run
-(`--batch-loci 0`, phase 5), K3 from the fused per-locus mode over the
+(the slice of chip_smoke phase 4), K3 from the sequential run
+(`--batch-loci 0`, phase 5), K4 from the flank per-locus mode over the
 slice's loci (phase 6).  In float32 and float64, each is checked against
 the side's plain version, then timed by this tree's `chip_smoke.event_ms`
 (CUDA events over 20 launches after a warm-up, L2 warm and L2 flushed),
@@ -50,7 +50,7 @@ def this_smoke():
 
 def capture(data: str, saved: str) -> None:
     """Run this tree's paths on `data` once (the batched and the sequential
-    run, the fused mode over the slice's loci) and save, for each kernel,
+    run, the flank mode over the slice's loci) and save, for each kernel,
     the arguments of the first launch at each of its two most frequent
     shapes (CPU copies, HapMeta and int arguments kept), with the shape and
     its launch count."""
@@ -81,16 +81,16 @@ def capture(data: str, saved: str) -> None:
           "segment": (hmm2, "segment_kernel", c.shape_segment)},
          lambda: cli.run(base + ["--batch-loci", "32", "--host-workers",
                                  "1", "--str-vcf", f"{data}/ab.vcf"]))
-    path({"flank_scan": (hmm_scan, "flank_scan_kernel",
-                         c.shape_flank_scan)},
+    path({"segment_scan": (hmm_scan, "segment_scan_kernel",
+                           c.shape_segment_scan)},
          lambda: cli.run(base + ["--batch-loci", "0", "--str-vcf",
                                  f"{data}/ab0.vcf"]))
     loci = c.slice_loci(data)
-    path({"segment_scan": (hmm_scan, "segment_scan_kernel",
-                           c.shape_segment_scan)},
+    path({"flank_scan": (hmm_scan, "flank_scan_kernel",
+                         c.shape_flank_scan)},
          lambda: [compute_hap_log_likelihoods(
              *locus, dtype="float32", device=torch.device("cuda"),
-             mode="fused") for _, locus in loci])
+             mode="flank") for _, locus in loci])
     out = {}
     for name, cap in caps.items():
         out[name] = []

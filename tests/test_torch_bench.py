@@ -18,6 +18,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 
 import pytest
 import torch
@@ -133,6 +134,35 @@ def test_profile_host_on_the_cpu(tmp_path, capsys):
     assert "e2e:" in text and "success=1 fail=0" in text
     assert os.path.getsize(out) > 0
     assert any(fn[2] == "run_batched" for fn in stats.stats)
+
+
+def test_profile_host_waits_for_the_warm_up_threads(monkeypatch, capsys):
+    """A helper thread that the warm-up run leaves behind (run_batched shuts
+    its pools down without waiting) and that returns from its frames while
+    cProfile runs must not cost the profiled run its frames: cProfile keeps
+    one call stack for every thread, so those returns would pop them."""
+    profiled = threading.Event()
+    runs = []
+
+    def linger(depth):
+        if depth:
+            return linger(depth - 1)
+        profiled.wait(timeout=0.5)
+
+    def run_e2e(tmp, device):
+        runs.append(tmp)
+        if len(runs) == 2:                  # the profiled run
+            profiled.set()
+            return bench.run_e2e(tmp, device)
+        res = bench.run_e2e(tmp, device)
+        threading.Thread(target=linger, args=(50,)).start()
+        return res
+
+    monkeypatch.setattr(profile_host, "run_e2e", run_e2e)
+    stats = profile_host.main(["--device", "cpu", "--loci", "1", "--reads",
+                               "10"])
+    assert "success=1 fail=0" in capsys.readouterr().out
+    assert {"run_e2e", "run_batched"} <= {fn[2] for fn in stats.stats}
 
 
 def test_decode_bench_bam_and_cram(tmp_path):
