@@ -13,8 +13,11 @@ Phases (any failure raises and exits non-zero):
   3. each kernel against its plain PyTorch version on the card, float32
      and float64, at the main-path shape and a deep shape, with times (K4
      and K3 by `event_ms`: their one-locus launches are shorter than the
-     wrapper's host time); K1 and K2 at L = 384 and 512; K4 and K3 at
-     every L bucket (64 .. 512);
+     wrapper's host time), K1's loci at repeat periods drawn from 1-9; K1
+     and K2 at L = 384 and 512; K4 and K3 at every L bucket (64 .. 512);
+     K1, K2, K3 and K4 on the real reads of the period-9 locus of
+     utils.simdata.period_loci (stutter-row shifts of up to 54 lanes),
+     both orientations, packed by the main path's host code;
   4. the batched slice: `hipstr_tpu_torch.cli` in-process on 60 simulated
      30x trio loci (float32, --batch-loci 32); 60/60 genotyped, K1 and K2
      launched at least twice per dispatch, K3 and K4 never, JAX never
@@ -46,12 +49,24 @@ Phases (any failure raises and exits non-zero):
      the CPU (equal converged flags and iterations, parameters within
      rtol 1e-8, atol 1e-10), float32's largest parameter difference, EM
      seconds per wave, and torch ops and kernel launches per iteration;
+     then on the two stutter-free problems of
+     utils.simdata.stutter_free_problems (models of pseudocounts alone,
+     on a {x:.2f} tie) every parameter bit-equal to the host EM's;
      (d) the float64 EM anchor: the reference dataset without a stutter
      model, in-process and pooled, against
      tests/data/torch_port_ref_em_f64.vcf;
   8. float64 cross-check: the port's VCF on the dataset behind
      tests/data/torch_port_ref_f64.vcf, batched (K1 + K2) and sequential
      (K1 + K3), against that file;
+ 8b. repeat periods 5-9: utils.simdata.period_loci through the CLI
+     without a stutter model, float64 batched (device EM and fused
+     posteriors, K1 + K2) and sequential (host EM, K1 + K3) byte-identical
+     to tests/data/torch_port_periods_f64.vcf (records that differ logged
+     first), float32 batched within the drift bands; the stutter-free
+     locus of utils.simdata.em_tie_loci float64 batched byte-identical to
+     tests/data/torch_port_em_tie_f64.vcf; each run's launches counted
+     from 0; the fused posteriors on the card at prior ratios (A = 2-5,
+     diploid and haploid) printing every field as the host posteriors do;
   9. real shapes: each kernel at the two launch shapes its path used most
      (K1 and K2 from phase 4's histogram, K3 from phase 5's, K4 from the
      flank mode over the slice's loci), on the arguments that path really
@@ -149,6 +164,8 @@ from collections import Counter
 ROOT = os.path.dirname(os.path.abspath(__file__))
 REF_VCF = os.path.join(ROOT, "tests", "data", "torch_port_ref_f64.vcf")
 REF_EM_VCF = os.path.join(ROOT, "tests", "data", "torch_port_ref_em_f64.vcf")
+PERIODS_VCF = os.path.join(ROOT, "tests", "data", "torch_port_periods_f64.vcf")
+EM_TIE_VCF = os.path.join(ROOT, "tests", "data", "torch_port_em_tie_f64.vcf")
 DENOVO_STR_VCF = os.path.join(ROOT, "tests", "data",
                               "torch_port_denovo_str_f64.vcf")
 # phase 10's runs of each golden configuration: (label, dtype, mode flags)
@@ -402,7 +419,7 @@ def check_emission(shape, dtype_name, device, rng):
     blen_np = rng.integers(1, B + 1, (G, O)).astype(np.int32)
     blen_np[:, -1] = 0                      # a padded option in every locus
     blen = torch.from_numpy(blen_np).to(device)
-    periods = torch.from_numpy(rng.integers(1, 5, G).astype(np.int32)
+    periods = torch.from_numpy(rng.integers(1, 10, G).astype(np.int32)
                                ).to(device)
     args = (codes, blw, blc, brev, blen, periods)
     got = stutter_emissions(*args)
@@ -414,9 +431,10 @@ def check_emission(shape, dtype_name, device, rng):
     return err, ms, plain_ms, bound_emission(args, {}, dtype_name)["bound_ms"]
 
 
-def real_locus(tmp):
-    """One real locus of the slice's dataset, packed through the main
-    path's host code and prepare_locus: (arrays, statics)."""
+def real_locus(tmp, chrom=None):
+    """One real locus of the dataset in `tmp` (its first, or the one on
+    `chrom`), packed through the main path's host code and prepare_locus:
+    (arrays, statics)."""
     from hipstr_tpu_torch.io.regions import read_regions
     from hipstr_tpu_torch.models.stutter import StutterModel
     from hipstr_tpu_torch.pipeline.processor import (GenotyperPipeline,
@@ -427,7 +445,8 @@ def real_locus(tmp):
         def_stutter_model=StutterModel(0.95, 0.05, 0.05, 0.95, 0.01, 0.01, 2))
     p = GenotyperPipeline([f"{tmp}/sim.bam"], f"{tmp}/sim.fa", opts,
                           Logger(quiet=True))
-    region = read_regions(f"{tmp}/regions.bed", 1)[0]
+    region = next(r for r in read_regions(f"{tmp}/regions.bed")
+                  if chrom in (None, r.chrom))
     g = p.prepare_locus_genotyper(region, p.fasta.get_sequence(region.chrom))
     seqs, quals, seeds = g.pool_inputs()
     return prepare_locus(g.align_haplotype(), seqs, quals, seeds, "float32")
@@ -502,12 +521,17 @@ def scan_inputs(P, dtype_name, device, rng, arrays, statics, L=None):
 
 def check_flank_scan(P, dtype_name, device, rng, arrays, statics, L=None):
     """K4 over the phase-1 rows of a real locus from its row-0 state."""
+    return flank_scan_case(dtype_name, *scan_inputs(
+        P, dtype_name, device, rng, arrays, statics, L)[:4])
+
+
+def flank_scan_case(dtype_name, rd, meta, R, sr):
+    """K4 on one locus's reads `rd` (scan_inputs' layout) over the phase-1
+    rows of `meta` from its row-0 state: (err, ms, plain ms, bound ms)."""
     from hipstr_tpu_torch.ops.hmm import IMPOSSIBLE, emit_locus
     from hipstr_tpu_torch.ops.hmm_scan import (flank_scan_kernel,
                                                flank_scan_plain)
     import torch
-    rd, meta, R, sr, _ = scan_inputs(P, dtype_name, device, rng, arrays,
-                                     statics, L)
     codes, blw, blc, C, Csh, _ = rd
     M = emit_locus(codes, meta.row_char[:, 0], blc, blw) + Csh[:, None]
     state = (M, C[:, None].expand(M.shape).contiguous(),
@@ -529,12 +553,18 @@ def check_flank_scan(P, dtype_name, device, rng, arrays, statics, L=None):
 def check_segment_scan(P, dtype_name, device, rng, arrays, statics,
                        L=None):
     """K3 over the forward orientation of a real locus (E from K1)."""
+    return segment_scan_case(dtype_name, *scan_inputs(
+        P, dtype_name, device, rng, arrays, statics, L))
+
+
+def segment_scan_case(dtype_name, rd, meta, R, sr, period):
+    """K3 on one locus's reads `rd` (scan_inputs' layout) and rows `meta`,
+    E from K1: (err, ms, plain ms, bound ms)."""
     import torch
     from hipstr_tpu_torch.ops.emission import stutter_emissions
     from hipstr_tpu_torch.ops.hmm_scan import (segment_scan_kernel,
                                                segment_scan_plain)
-    rd, meta, R, sr, period = scan_inputs(P, dtype_name, device, rng,
-                                          arrays, statics, L)
+    device = rd[0].device
     codes, blw, blc = rd[:3]
     periods = torch.full((1,), period, dtype=torch.int32, device=device)
     E = stutter_emissions(codes[None], blw[None], blc[None],
@@ -549,6 +579,75 @@ def check_segment_scan(P, dtype_name, device, rng, arrays, statics,
     plain_ms = cuda_ms(lambda: segment_scan_plain(*args), 2)
     return err, ms, plain_ms, bound_segment_scan(args, {}, dtype_name)[
         "bound_ms"]
+
+
+def check_real_period(device, tmp, chrom="chrP9"):
+    """K1, K2, K3 and K4 on the real reads of one locus of
+    utils.simdata.period_loci (the period-9 one: stutter-row shifts up to
+    54 lanes), packed by the main path's host code (`real_locus`, then
+    `locus_to_torch` as a dispatch converts it), both orientations,
+    float32 and float64, each against its plain version at TOL.  Returns
+    {dtype: {kernel: max abs err}} and logs the locus's shape."""
+    import torch
+    from hipstr_tpu_torch.device import resolve_dtype
+    from hipstr_tpu_torch.ops.emission import stutter_emissions
+    from hipstr_tpu_torch.ops.hmm import expand_quals, shift_right
+    from hipstr_tpu_torch.ops.hmm2 import (segment_args, segment_forward_plain,
+                                           segment_kernel)
+    from hipstr_tpu_torch.ops.stutter_emission import stutter_emissions_plain
+    from hipstr_tpu_torch.pipeline.hap_aligner import locus_to_torch
+    arrays, statics = real_locus(tmp, chrom)
+    period, P_real, H_real = statics[4:7]
+    out = {}
+    for dtype_name in ("float32", "float64"):
+        dt = resolve_dtype(dtype_name)
+        t = locus_to_torch(arrays, device, dt)
+        errs = dict(emission=0.0, segment=0.0, flank_scan=0.0,
+                    segment_scan=0.0)
+        for orient in (0, 1):
+            seg, meta = t[orient], t[2 + orient]
+            R, sr = statics[orient], statics[2 + orient]
+            blw, blc = expand_quals(seg.quals, dt)
+            codes = seg.codes.int().contiguous()
+            periods = torch.full((1,), period, dtype=torch.int32,
+                                 device=device)
+            k1 = (codes[None], blw[None], blc[None],
+                  meta.rep_rev_codes.int()[None].contiguous(),
+                  meta.rep_len.int()[None].contiguous(), periods)
+            E = stutter_emissions(*k1)
+            E_ref = stutter_emissions_plain(*k1)
+            torch.cuda.synchronize()
+            errs["emission"] = max(errs["emission"], compare(
+                "emission", E, E_ref, dtype_name))
+            # K2 on the locus as a dispatch of one
+            meta1 = type(meta)(*[x[None] for x in meta])
+            h_real = torch.full((1,), H_real, dtype=torch.int32,
+                                device=device)
+            args, _ = segment_args(seg.codes[None], seg.quals[None],
+                                   seg.last_col[None], meta1, E_ref, R, sr,
+                                   h_real, periods, dt)
+            got = segment_kernel(*args, R=R, sr=sr)
+            ref = segment_forward_plain(*args, R=R, sr=sr)
+            torch.cuda.synchronize()
+            errs["segment"] = max(errs["segment"], compare(
+                "segment", got, ref, dtype_name))
+            C = torch.cumsum(blc, dim=-1)
+            rd = (codes, blw, blc, C, shift_right(C, 0.0),
+                  seg.last_col.int().contiguous())
+            errs["flank_scan"] = max(errs["flank_scan"], flank_scan_case(
+                dtype_name, rd, meta, R, sr)[0])
+            errs["segment_scan"] = max(errs["segment_scan"],
+                                       segment_scan_case(
+                                           dtype_name, rd, meta, R, sr,
+                                           period)[0])
+        out[dtype_name] = errs
+        log(f"period {period} real locus {dtype_name} P={P_real} "
+            f"H={H_real} L={t[0].codes.shape[1]} "
+            f"R={statics[0]}/{statics[1]} O={t[2].rep_len.shape[0]} "
+            f"Bmax={t[2].rep_rev_codes.shape[1]}: max err "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    check_no_jax()
+    return out
 
 
 def timed(r) -> str:
@@ -1204,6 +1303,45 @@ def phase_em_train(tmp, device):
     return out
 
 
+def phase_em_ties(device):
+    """(c) the card's em_train_batch in float64 on the stutter-free
+    problems of utils.simdata.stutter_free_problems (n = 35 and 195 EM
+    reads: models of pseudocounts alone, 1/(n + 5), on a {x:.2f} tie):
+    converged flags, iterations and all six parameters bit-equal to the
+    host EM's, every locus and parameter logged."""
+    import torch
+    from hipstr_tpu_torch.ops import em_batched
+    from hipstr_tpu_torch.ops.em import EMStutterGenotyper
+    from hipstr_tpu_torch.utils.simdata import stutter_free_problems
+    raws = stutter_free_problems()
+    arrays, (_, _, Sm) = em_batched.pack_problems(
+        [em_batched.EMProblem.build(*raw) for raw in raws])
+    got = {k: v.cpu().numpy() for k, v in em_batched.em_train_batch(
+        arrays, Sm, device, torch.float64).items()}
+    out, bad = [], []
+    for g, raw in enumerate(raws):
+        host = EMStutterGenotyper(*raw, 0).train()
+        sm = host.stutter_model
+        want = [sm.in_geom, sm.in_up, sm.in_down, sm.out_geom, sm.out_up,
+                sm.out_down]
+        card = [float(x) for x in got["params"][g]]
+        same = (card == want and bool(got["converged"][g]) == host.converged
+                and int(got["iters"][g]) == host.num_iterations)
+        n = len(raw[2][0])
+        log(f"EM stutter-free n={n} period={raw[1]}: card {card!r}, host "
+            f"{want!r}, iterations {int(got['iters'][g])}/"
+            f"{host.num_iterations}: "
+            + ("bit-equal" if same else "DIFFERENT"))
+        out.append(dict(n=n, bit_equal=same))
+        if not same:
+            bad.append(n)
+    if bad:
+        raise AssertionError(f"EM stutter-free problems n={bad}: the card's "
+                             "float64 parameters are not the host EM's")
+    check_no_jax()
+    return out
+
+
 # ---------------------------------------------------------------- phase 8
 def vcf_body(path):
     return [l for l in open(path) if not l.startswith("#")]
@@ -1316,6 +1454,157 @@ def phase_reference(tmp, device_name="cuda"):
         check_mode_launches(f"f64 {label}", dict(kernels.LAUNCHES),
                             label == "batched", True)
         hold_to_reference(f"f64 {label}", out, REF_VCF)
+
+
+# --------------------------------------------------------------- phase 8b
+def prior_ratio_case(A: int, haploid: bool):
+    """One locus's posterior inputs whose reads do not tell its A alleles
+    apart (each read's LL the same for every haplotype; 3 samples x 35
+    reads): (LL [R, A], posterior meta, S).  Every posterior is then a
+    ratio of priors."""
+    import numpy as np
+    rng = np.random.default_rng(60 + A)
+    S, per_sample = 3, 35
+    R = S * per_sample
+    LL = np.repeat(rng.uniform(-40.0, -1.0, (R, 1)), A, axis=1)
+    p = np.zeros(R)
+    pm = dict(pool_row=np.arange(R, dtype=np.int32),
+              mate_index=np.arange(R, dtype=np.int32),
+              has_mate=np.zeros(R, bool), read_ok=np.ones(R, bool),
+              weights=np.ones(R), log_p1=p, log_p2=p,
+              sample=np.repeat(np.arange(S, dtype=np.int32), per_sample),
+              col_index=np.arange(A, dtype=np.int32),
+              n_alleles=np.int32(A), haploid=np.bool_(haploid))
+    return LL, pm, S
+
+
+def posterior_fields(log_post, totals, A: int, haploid: bool,
+                     extract_genotypes):
+    """Every field the VCF prints from one locus's posteriors, per sample:
+    the ML haplotype pair, then Q, PQ, the haplotype Q and PQ, GLDIFF, GL,
+    PL and PHASEDGL as the record prints them ({x:.2f}, PL integers), taken
+    with `extract_genotypes` (ops/posteriors.extract_genotypes)."""
+    import numpy as np
+    ext = extract_genotypes(np.asarray(log_post), np.asarray(totals),
+                            np.arange(A), A, haploid, A, calc_gls=True,
+                            calc_pls=True, calc_phased_gls=True)
+    f = "{:.2f}".format
+    return [(int(ext.best_hap_a[s]), int(ext.best_hap_b[s]),
+             f(math.exp(ext.log_unphased_post[s])),
+             f(math.exp(ext.log_phased_post[s])),
+             f(math.exp(ext.hap_log_unphased_post[s])),
+             f(math.exp(ext.hap_log_phased_post[s])), f(ext.gl_diffs[s]),
+             [f(v) for v in ext.gls[s]], [int(v) for v in ext.pls[s]],
+             [f(v) for v in ext.phased_gls[s]])
+            for s in range(len(totals))]
+
+
+def prior_ratio_posteriors(A: int, haploid: bool, device, host=None):
+    """(fields of the fused posteriors on `device` in float64, fields of
+    the host posteriors, max |log_post difference|) on prior_ratio_case.
+    `host` is the module whose sample_posteriors, log_genotype_priors and
+    extract_genotypes make the host side (the port's ops/posteriors by
+    default)."""
+    import numpy as np
+    import torch
+    from hipstr_tpu_torch.ops import posteriors as post_ops
+    host = host or post_ops
+    LL, pm, S = prior_ratio_case(A, haploid)
+    log_post, totals = post_ops.batched_pool_posteriors(
+        torch.from_numpy(LL[None]).to(device),
+        {k: torch.from_numpy(np.asarray(v)[None]).to(device)
+         for k, v in pm.items()}, S, torch.float64)
+    log_post, totals = log_post[0].cpu().numpy(), totals[0].cpu().numpy()
+    R = LL.shape[0]
+    h_post, h_tot, _ = host.sample_posteriors(
+        np, LL, pm["log_p1"], pm["log_p2"], np.ones(R), pm["sample"], S,
+        host.log_genotype_priors(np, A, haploid))
+    real = h_post > -1.0e20
+    diff = float(np.max(np.abs(log_post[real] - h_post[real])))
+    return (posterior_fields(log_post, totals, A, haploid,
+                             post_ops.extract_genotypes),
+            posterior_fields(h_post, h_tot, A, haploid,
+                             host.extract_genotypes), diff)
+
+
+def phase_periods(tmp, device_name="cuda"):
+    """Repeat periods 5-9 (utils.simdata.period_loci, written in `tmp`)
+    through the CLI without a stutter model: float64 batched (device EM,
+    fused posteriors; K1 + K2) and sequential (host EM; K1 + K3)
+    byte-identical to
+    tests/data/torch_port_periods_f64.vcf, float32 batched within the
+    drift bands; the stutter-free locus of utils.simdata.em_tie_loci
+    float64 batched byte-identical to tests/data/torch_port_em_tie_f64.vcf;
+    the fused posteriors on the card at prior ratios (A = 2-5, diploid and
+    haploid) printing every field as the host's.  Each run's launches
+    counted from 0."""
+    import torch
+    from hipstr_tpu_torch import cli, kernels
+    from hipstr_tpu_torch.device import resolve_device
+    from hipstr_tpu_torch.utils.simdata import (LEARN_ARGS, em_tie_loci,
+                                                write_sim)
+    os.makedirs(f"{tmp}/tie", exist_ok=True)
+    write_sim(f"{tmp}/tie", em_tie_loci())
+    runs = (("periods f64 batched", tmp, PERIODS_VCF, "float64",
+             ["--host-workers", "1"]),
+            ("periods f64 sequential", tmp, PERIODS_VCF, "float64",
+             ["--batch-loci", "0"]),
+            ("periods f32 batched", tmp, PERIODS_VCF, "float32",
+             ["--host-workers", "1"]),
+            ("EM tie f64 batched", f"{tmp}/tie", EM_TIE_VCF, "float64",
+             ["--host-workers", "1"]))
+    out = {}
+    for label, d, ref, dtype, extra in runs:
+        vcf = f"{d}/{label.replace(' ', '_')}.vcf"
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        pipeline, counters = cli.run(
+            ["--bams", f"{d}/sim.bam", "--fasta", f"{d}/sim.fa",
+             "--regions", f"{d}/regions.bed", "--str-vcf", vcf, "--dtype",
+             dtype, "--device", device_name, "--silent"] + LEARN_ARGS
+            + extra)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        batched = "--batch-loci" not in extra
+        waves = pipeline.last_run_stats["em_waves"] if batched else 0
+        log(f"{label}: success={counters.genotype_success} "
+            f"fail={counters.genotype_fail} em_waves={waves} wall "
+            f"{wall:.3f} s launches {launches}")
+        if counters.genotype_fail or counters.genotype_success != len(
+                vcf_body(ref)):
+            raise AssertionError(f"{label}: not every locus genotyped")
+        if batched and not waves:
+            raise AssertionError(f"{label}: no device EM wave")
+        check_mode_launches(label, launches, batched, True)
+        # every record that differs is logged before a raise
+        same = hold_to_reference(label, vcf, ref)
+        if dtype == "float64" and same != len(vcf_body(ref)):
+            raise AssertionError(f"{label}: not byte-identical to "
+                                 f"{os.path.relpath(ref, ROOT)}")
+        out[label] = dict(wall_s=wall, launches=launches, em_waves=waves,
+                          byte_identical=same)
+    check_no_jax()
+    device = resolve_device(device_name)
+    diffs, bad = {}, []
+    for A in (2, 3, 4, 5):
+        for haploid in (False, True):
+            got, want, diff = prior_ratio_posteriors(A, haploid, device)
+            diffs[f"A{A}{'h' if haploid else 'd'}"] = diff
+            if got != want:
+                log(f"prior-ratio posteriors A={A} haploid={haploid}:\n  "
+                    f"card {got}\n  host {want}")
+                bad.append((A, haploid))
+    log(f"prior-ratio posteriors (A = 2-5, diploid and haploid): printed "
+        f"fields {'equal' if not bad else 'DIFFERENT'}, max |log_post "
+        f"card - host| {max(diffs.values()):.3e}")
+    if bad:
+        raise AssertionError(f"prior-ratio posteriors differ at {bad}")
+    out["prior_ratio_max_log_post_diff"] = max(diffs.values())
+    check_no_jax()
+    return out
+
 
 # ---------------------------------------------------------------- phase 9
 # The least time the card could take for a kernel's work on these inputs:
@@ -2568,8 +2857,8 @@ def main() -> int:
     ptxas = phase_build()
     check_no_jax()
     from hipstr_tpu_torch.device import resolve_device
-    from hipstr_tpu_torch.utils.simdata import (reference_loci, trio_loci,
-                                                write_sim)
+    from hipstr_tpu_torch.utils.simdata import (period_loci, reference_loci,
+                                                trio_loci, write_sim)
     device = resolve_device("cuda")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         os.makedirs(f"{tmp}/slice")
@@ -2578,7 +2867,10 @@ def main() -> int:
         write_sim(f"{tmp}/slice", trio_loci(SLICE_LOCI, SLICE_READS))
         log(f"dataset: {SLICE_LOCI} loci x 3 samples x {SLICE_READS} reads "
             f"in {time.perf_counter() - t0:.2f} s")
+        os.makedirs(f"{tmp}/periods")
+        write_sim(f"{tmp}/periods", period_loci())
         kres = phase_kernels(device, f"{tmp}/slice")
+        period_errs = check_real_period(device, f"{tmp}/periods")
         check_no_jax()
         # each path's launches, counted from 0 over that path's run
         launches, slice_shapes, slice_stats = phase_slice(f"{tmp}/slice")
@@ -2588,9 +2880,14 @@ def main() -> int:
         phase_em_sequential(f"{tmp}/slice")
         em_stats = phase_em(f"{tmp}/slice")
         em_stats["train"] = phase_em_train(f"{tmp}/slice", device)
+        em_stats["train"]["stutter_free"] = phase_em_ties(device)
         os.makedirs(f"{tmp}/ref_em")
         phase_em_reference(f"{tmp}/ref_em")
         phase_reference(f"{tmp}/ref")
+        t0 = time.perf_counter()
+        periods = phase_periods(f"{tmp}/periods")
+        periods["kernel_errs"] = period_errs
+        log(f"phase 8b (periods 5-9) took {time.perf_counter() - t0:.1f} s")
         check_no_jax()
         real, held = phase_real_shapes(f"{tmp}/slice", device,
                                        slice_shapes, seq_shapes, loci)
@@ -2630,7 +2927,8 @@ def main() -> int:
         log(f"phase 14 (sharded dispatch) took "
             f"{time.perf_counter() - t0:.1f} s")
     log(json.dumps({"slice": slice_stats, "sequential": seq_stats,
-                    "modes": mode_stats, "em": em_stats, "golden": golden,
+                    "modes": mode_stats, "em": em_stats, "periods": periods,
+                    "golden": golden,
                     "denovo": denovo, "scale": scale, "card": card,
                     "measuring": measuring, "shards": shards,
                     "ptxas": {k: ptxas[k] for k in ("flank_scan",

@@ -264,8 +264,10 @@ def em_train_batch(arrays: dict, Sm: int, device: torch.device,
         out_up=(~in_frame & (diff_ra > 0) & pair_mask, None),
         out_down=(~in_frame & (diff_ra < 0) & pair_mask, None),
         out_diffs=(~in_frame & pair_mask, log_abs_out))
-    zero = torch.zeros(G, dtype=dtype, device=device)
-    pseudo = torch.logaddexp(zero, torch.full_like(zero, PSEUDO_GEOM))
+    # each category's pseudocount entries, summed with its read weights
+    one = torch.zeros((G, 1), dtype=dtype, device=device)
+    geom = torch.tensor([[0.0, PSEUDO_GEOM]], dtype=dtype,
+                        device=device).expand(G, 2)
 
     def e_step(params, log_gt_priors):
         aln = _log_pmf(diff_ra, _param_logs(params), per)         # [G, R, A]
@@ -313,28 +315,34 @@ def em_train_batch(arrays: dict, Sm: int, device: torch.device,
         W0 = _masked_lse(post_r + (a - tot_ph), m0, 3)            # [G, R, A]
         W1 = _masked_lse(post_r + (b - tot_ph), m1, 2)            # [G, R, A]
 
-        def cat(name):
-            """logsumexp of W0, W1 (+extra) over the category mask."""
+        def cat(name, seeds):
+            """logsumexp of the pseudocount entries `seeds` [G, k] and of
+            W0, W1 (+extra) over the category mask, in one sum: the host
+            EM's order (ops/em.py), so a model of pseudocounts alone is
+            bit-equal to the host's."""
             mask, extra = cats[name]
             v0 = W0 if extra is None else W0 + extra
             v1 = W1 if extra is None else W1 + extra
             both = torch.stack([torch.where(mask, v0, NEG),
                                 torch.where(mask, v1, NEG)], 1)   # [G,2,R,A]
-            return _masked_lse(both.reshape(G, -1), None, 1)
+            return _masked_lse(torch.cat([seeds, both.reshape(G, -1)], 1),
+                               None, 1)
 
-        in_eq = torch.logaddexp(zero, cat("in_eq"))
-        in_up = torch.logaddexp(zero, cat("in_up"))
-        in_down = torch.logaddexp(zero, cat("in_down"))
-        in_diffs = torch.logaddexp(pseudo, cat("in_diffs"))
-        out_up = torch.logaddexp(zero, cat("out_up"))
-        out_down = torch.logaddexp(zero, cat("out_down"))
-        out_diffs = torch.logaddexp(pseudo, cat("out_diffs"))
+        in_eq = cat("in_eq", one)
+        in_up = cat("in_up", one)
+        in_down = cat("in_down", one)
+        in_diffs = cat("in_diffs", geom)
+        out_up = cat("out_up", one)
+        out_down = cat("out_down", one)
+        out_diffs = cat("out_diffs", geom)
 
         in_tot = torch.logaddexp(in_up, in_down)
         out_tot = torch.logaddexp(out_up, out_down)
         in_pgeom = torch.clamp(torch.exp(in_tot - in_diffs), max=0.999)
         out_pgeom = torch.clamp(torch.exp(out_tot - out_diffs), max=0.999)
-        log_total = torch.logaddexp(torch.logaddexp(in_tot, in_eq), out_tot)
+        log_total = torch.logaddexp(
+            _masked_lse(torch.stack([in_up, in_down, in_eq], 1), None, 1),
+            out_tot)
         new_params = torch.stack(
             [in_pgeom,
              torch.exp(in_up - log_total), torch.exp(in_down - log_total),

@@ -137,6 +137,47 @@ REFERENCE_ARGS = ["--min-reads", "15", "--use-unpaired",
 # tests/data/torch_port_ref_em_f64.vcf)
 REFERENCE_EM_ARGS = [a for a in REFERENCE_ARGS if a != "--def-stutter-model"]
 
+# options of the period and EM-tie runs below: no stutter model, so each
+# locus learns one (the JAX CLI's float64 run: the host EM)
+LEARN_ARGS = ["--min-reads", "12", "--use-unpaired"]
+
+
+def period_loci():
+    """The loci behind tests/data/torch_port_periods_f64.vcf: one spannable
+    locus of each repeat period 5-9 (2 samples x 25 reads of 150 bp), and a
+    period-8 locus whose learned model is the pseudocounts alone (all six
+    parameters 1/(n + 5) of its n EM reads)."""
+    locs = [simulate_locus(seed=7500 + period, n_samples=2,
+                           reads_per_sample=25, read_len=150, period=period,
+                           ref_units=max(5, 12 - period),
+                           chrom=f"chrP{period}")
+            for period in range(5, 10)]
+    locs.append(simulate_locus(seed=7701, n_samples=2, reads_per_sample=25,
+                               period=8, ref_units=5, read_len=120,
+                               chrom="chrP8b"))
+    return locs
+
+
+def em_tie_loci():
+    """The locus behind tests/data/torch_port_em_tie_f64.vcf: 35 EM reads
+    and no stutter read, so its learned UP and DOWN parameters are 1/40,
+    a tie of the VCF's {x:.2f} (0.025)."""
+    from ..models.stutter import StutterModel
+    return [simulate_locus(seed=8900, n_samples=1, reads_per_sample=46,
+                           read_len=150, period=3, ref_units=8,
+                           stutter=StutterModel(0.9, 1e-9, 1e-9, 0.9, 1e-9,
+                                                1e-9, 3),
+                           chrom="chrTie")]
+
+
+def stutter_free_problems():
+    """Host-EM inputs (haploid, period, bps, log_p1, log_p2) of two loci
+    whose every EM read has the reference allele's length: their models are
+    the pseudocounts alone, 1/(n + 5) for n reads, which lands on a tie of
+    {x:.2f} at n = 35 (0.025) and n = 195 (0.005)."""
+    return [(False, period, [[0] * n], [[0.0] * n], [[0.0] * n])
+            for n, period in ((35, 3), (195, 8))]
+
 
 def write_golden(outdir: str, *, loci: int, samples: int, reads: int,
                  seed: int = 1234, period: int = 3, ref_units: int = 8,

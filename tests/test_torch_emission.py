@@ -42,7 +42,8 @@ def _reference(codes, blw, blc, brev, blen, periods):
 
 @pytest.mark.parametrize("periods,Bmax,L", [((1, 2), 16, 32),
                                             ((3, 1), 16, 32),
-                                            ((2, 3), 32, 64)])
+                                            ((2, 3), 32, 64),
+                                            ((5, 9), 32, 96)])
 def test_plain_emissions_match_reference(periods, Bmax, L):
     G, O, P = 2, 3, 4
     args = _inputs(sum(periods) * 100 + Bmax + L, G, O, P, L, Bmax, periods)

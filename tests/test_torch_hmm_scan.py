@@ -45,7 +45,7 @@ from hipstr_tpu_torch.pipeline.hap_aligner import locus_to_torch
 from tests.test_hmm_kernel import _mk_haplotype, _reads_from_hap
 from test_torch_slice import one_torch_thread  # noqa: F401
 
-PERIODS = [1, 2, 3, 4]
+PERIODS = [1, 2, 3, 4, 7, 9]
 F64 = torch.float64
 CPU = torch.device("cpu")
 
