@@ -55,6 +55,26 @@ Phases (any failure raises and exits non-zero):
      (d) the float64 EM anchor: the reference dataset without a stutter
      model, in-process and pooled, against
      tests/data/torch_port_ref_em_f64.vcf;
+ 7e. the default path without a stutter model on reads whose CIGARs
+     carry their stutter (utils.simdata.stutter_rich_loci: the EM sees
+     several allele sizes and runs its loop, where every other dataset
+     here has all-M CIGARs and stops it at iteration 2): (i) the anchor
+     set (12 loci, periods 1-6, 3 x 50 reads of 100 bp, a phased SNP
+     each) in float64 batched in-process (device EM, fused posteriors;
+     K1 + K2), pooled (3 workers) and sequential (host EM; K1 + K3)
+     byte-identical to tests/data/torch_port_stutter_rich_f64.vcf
+     (records that differ logged first), its --stutter-out file equal to
+     tests/data/torch_port_stutter_rich_models_f64.txt (or each differing
+     parameter within rtol 1e-8), float32 batched within the drift bands;
+     (ii) the card's float64 em_train_batch against the host EM on the EM
+     problems of the anchor and full-width sets as in 7(c), with each
+     set's iteration histogram; (iii) the full-width set (60 loci x 3 x
+     170 reads of 150 bp) in float32 in-process and with the default
+     pool: every locus settled, loci/s, host and device-wait s, the
+     haplotype-count histogram, dispatches not fused (H_pad > 32),
+     launches per dispatch; then K1 and K2 on the arguments of their most
+     frequent launch shape there, float32 and float64, against their
+     plain versions, timed (L2 flushed) beside the bound;
   8. float64 cross-check: the port's VCF on the dataset behind
      tests/data/torch_port_ref_f64.vcf, batched (K1 + K2) and sequential
      (K1 + K3), against that file;
@@ -135,11 +155,12 @@ Phases (any failure raises and exits non-zero):
      one card a line says that this leg was not run.  Phases 4, 7 and 13
      count K1 and K2 per card-shard (a dispatch on one card is one).
 
-The in-process runs of phases 4, 7(a), 8 and 9 pass --host-workers 1, so
+The in-process runs of phases 4, 7(a), 7e, 8 and 9 pass --host-workers 1, so
 their numbers stay comparable whatever the machine's core count.  After
 every phase no module of JAX or of the JAX package may be loaded.
 Prints the kernel summary as one JSON line (per kernel its real-shape
-time, bound and share of the bound), then as the last line {"ok": true,
+time, bound and share of the bound; K1 and K2 also at phase 7e's and 13c's
+shapes), then as the last line {"ok": true,
 "device": {...}}.  Needs one visible CUDA card.
 
     python3 chip_smoke.py --cross-card
@@ -166,6 +187,10 @@ REF_VCF = os.path.join(ROOT, "tests", "data", "torch_port_ref_f64.vcf")
 REF_EM_VCF = os.path.join(ROOT, "tests", "data", "torch_port_ref_em_f64.vcf")
 PERIODS_VCF = os.path.join(ROOT, "tests", "data", "torch_port_periods_f64.vcf")
 EM_TIE_VCF = os.path.join(ROOT, "tests", "data", "torch_port_em_tie_f64.vcf")
+STUTTER_RICH_VCF = os.path.join(ROOT, "tests", "data",
+                                "torch_port_stutter_rich_f64.vcf")
+STUTTER_RICH_MODELS = os.path.join(ROOT, "tests", "data",
+                                   "torch_port_stutter_rich_models_f64.txt")
 DENOVO_STR_VCF = os.path.join(ROOT, "tests", "data",
                               "torch_port_denovo_str_f64.vcf")
 # phase 10's runs of each golden configuration: (label, dtype, mode flags)
@@ -1177,18 +1202,20 @@ def child_import_s(n: int, module: str = "hipstr_tpu_torch.parallel.workers",
     return out
 
 
-def slice_em_problems(tmp):
-    """(EMProblem, host EM inputs) of every locus of the slice, staged as
-    the batched run stages them."""
+def em_problems(tmp, n_loci=SLICE_LOCI, snp_vcf=None):
+    """(EMProblem, host EM inputs) of the first n_loci loci of the dataset
+    in `tmp` (the slice's by default), staged as the batched run stages
+    them (--min-reads 15 --use-unpaired, and --snp-vcf `snp_vcf`)."""
     from hipstr_tpu_torch.io.regions import read_regions
     from hipstr_tpu_torch.ops.em_batched import EMProblem
     from hipstr_tpu_torch.pipeline.processor import (GenotyperPipeline,
                                                      Logger, PipelineOptions)
     p = GenotyperPipeline([f"{tmp}/sim.bam"], f"{tmp}/sim.fa",
-                          PipelineOptions(min_reads=15, use_unpaired=True),
+                          PipelineOptions(min_reads=15, use_unpaired=True,
+                                          snp_vcf=snp_vcf),
                           Logger(quiet=True))
     out = []
-    for region in read_regions(f"{tmp}/regions.bed", SLICE_LOCI):
+    for region in read_regions(f"{tmp}/regions.bed", n_loci):
         prep = p.prepare_reads(region, p.fasta.get_sequence(region.chrom))
         inputs = p.stutter_em_inputs(prep.alns_by_rg, prep.log_p1s,
                                      prep.log_p2s, region)
@@ -1197,21 +1224,22 @@ def slice_em_problems(tmp):
     return out
 
 
-def phase_em_train(tmp, device):
-    """(c) the card's em_train_batch on the slice's EM problems, in waves
-    of EM_BATCH: float64 against the host EM on the CPU, float32 against
-    float64; seconds per wave; torch ops and kernel launches per
-    iteration."""
+def phase_em_train(staged, device, label="slice"):
+    """(c) the card's em_train_batch on `staged` (em_problems: the slice's
+    EM problems in phase 7), in waves of EM_BATCH: float64 against the
+    host EM on the CPU, float32 against float64; seconds per wave, the
+    histogram of float64 iteration counts; torch ops and kernel launches
+    per loop pass."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
     from torch.utils._python_dispatch import TorchDispatchMode
     from hipstr_tpu_torch.ops import em_batched
     from hipstr_tpu_torch.ops.em import EMStutterGenotyper
-    staged = slice_em_problems(tmp)
     waves = [staged[i:i + EM_BATCH] for i in range(0, len(staged), EM_BATCH)]
     rtol, atol = EM_TOL
     out = dict(waves=[], f64_max_rel_err=0.0, f32_max_abs_diff=0.0)
+    hist = Counter()
     for wave in waves:
         arrays, (Rm, Am, Sm) = em_batched.pack_problems([w[0] for w in wave])
         res, secs = {}, {}
@@ -1245,6 +1273,7 @@ def phase_em_train(tmp, device):
                                   - f64["params"])))
         out["f32_max_abs_diff"] = max(out["f32_max_abs_diff"], d32)
         it = f64["iters"]
+        hist.update(int(i) for i in it)
         # loop passes the call made: the last iteration, rounded up to the
         # host's read of `active`
         passes = min(100, -(-int(it.max()) // em_batched.SYNC_EVERY)
@@ -1289,11 +1318,14 @@ def phase_em_train(tmp, device):
     out["ops_per_iter"] = (counts[100][0] - counts[0][0]) / passes
     out["kernels_per_iter"] = ((counts[100][1] - counts[0][1]) / passes
                                if counts[100][1] else None)
-    log(f"EM float64 on the card vs the host EM: {len(staged)} loci, "
-        f"converged flags and iterations equal, params max rel err "
+    out["em_iter_hist"] = dict(sorted(hist.items()))
+    log(f"EM float64 on the card vs the host EM ({label}): {len(staged)} "
+        f"loci, converged flags and iterations equal, params max rel err "
         f"{out['f64_max_rel_err']:.3e} (rtol {rtol}, atol {atol}); float32 "
-        f"vs float64 params max |diff| {out['f32_max_abs_diff']:.3e}")
-    log(f"EM per iteration (wave 1, float32, {passes} loop passes): "
+        f"vs float64 params max |diff| {out['f32_max_abs_diff']:.3e}; "
+        f"iterations {out['em_iter_hist']}")
+    log(f"EM per loop pass ({label}, wave 1, float32, {passes} loop "
+        f"passes): "
         f"{out['ops_per_iter']:.1f} torch ops, "
         + (f"{out['kernels_per_iter']:.1f} kernel launches"
            if out["kernels_per_iter"] is not None else
@@ -1338,6 +1370,218 @@ def phase_em_ties(device):
     if bad:
         raise AssertionError(f"EM stutter-free problems n={bad}: the card's "
                              "float64 parameters are not the host EM's")
+    check_no_jax()
+    return out
+
+
+# --------------------------------------------------------------- phase 7e
+class DispatchLog:
+    """While active, records each batched dispatch (chunk) of the port's
+    executor: (G, H_pad, fused posteriors, each locus's real haplotype
+    count).  ops/posteriors fuses a dispatch only when H_pad <= 32."""
+
+    def __enter__(self):
+        from hipstr_tpu_torch.parallel import executor
+        self.cls, self.rows = executor.BatchedAligner, []
+        self.orig = self.cls._dispatch_chunk
+        rows, orig = self.rows, self.orig
+
+        def wrapper(aligner, chunk):
+            rows.append((len(chunk), chunk[0].arrays[4].seed_char.shape[0],
+                         chunk[0].statics[7] is not None,
+                         [it.statics[6] for it in chunk]))
+            return orig(aligner, chunk)
+
+        self.cls._dispatch_chunk = wrapper
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._dispatch_chunk = self.orig
+
+
+def learn_run(label, argv, dtype, extra, n_loci, device_name="cuda"):
+    """One CLI run without a stutter model (`argv`: inputs, options and
+    outputs, without --dtype, --device or the mode's `extra` flags),
+    launches counted from 0: (pipeline, numbers).  Every locus settled
+    (success + em_fail), fail 0; a batched run learns in at least one
+    device EM wave; K1 + K2 (batched) or K1 + K3 (sequential) launched
+    and no other."""
+    import torch
+    from hipstr_tpu_torch import cli, kernels
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with watchdog(POOL_WATCHDOG_S):
+        pipeline, counters = cli.run(argv + ["--dtype", dtype, "--device",
+                                             device_name] + extra)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    batched = "--batch-loci" not in extra
+    rs = pipeline.last_run_stats if batched else {}
+    t = pipeline.timer.totals
+    wait = t.get("Device fetch", 0.0)
+    res = dict(wall_s=wall, loci_per_s=n_loci / wall, host_s=wall - wait,
+               device_wait_s=wait, launches=launches,
+               success=counters.genotype_success, em_fail=counters.em_fail,
+               fail=counters.genotype_fail,
+               em_device_s=t.get("Stutter estimation (device)", 0.0),
+               worker_start_s=t.get("Worker start", 0.0),
+               **{k: rs[k] for k in ("em_waves", "em_iter_hist",
+                                     "dispatches", "card_shards",
+                                     "round_hist", "spec_hits",
+                                     "spec_misses") if k in rs})
+    log(f"{label}: success={res['success']} em_fail={res['em_fail']} "
+        f"fail={res['fail']} {res['loci_per_s']:.3f} loci/s, wall "
+        f"{wall:.3f} s, host {res['host_s']:.3f} s, device wait "
+        f"{wait:.3f} s, EM (device) {res['em_device_s']:.3f} s in "
+        f"{rs.get('em_waves', 0)} waves, iterations "
+        f"{rs.get('em_iter_hist')}, dispatches {rs.get('dispatches')}, "
+        f"device rounds per locus {rs.get('round_hist')}, speculative "
+        f"rounds served by the column gather {rs.get('spec_hits')} "
+        f"(realigned {rs.get('spec_misses')}), launches {launches}")
+    if res["fail"] or res["success"] + res["em_fail"] != n_loci:
+        raise AssertionError(f"{label}: not every locus settled")
+    if batched and not rs["em_waves"]:
+        raise AssertionError(f"{label}: no device EM wave")
+    check_mode_launches(label, launches, batched, True)
+    check_no_jax()
+    return pipeline, res
+
+
+def stutter_rich_run(label, d, dtype, extra, n_loci, device_name="cuda"):
+    """learn_run on the stutter-rich set in `d`: (pipeline, VCF path,
+    models text, numbers)."""
+    from hipstr_tpu_torch.utils.simdata import stutter_rich_args
+    name = label.replace(" ", "_")
+    vcf, models = f"{d}/{name}.vcf", f"{d}/{name}_models.txt"
+    pipeline, res = learn_run(
+        label, stutter_rich_args(d, vcf) + ["--stutter-out", models], dtype,
+        extra, n_loci, device_name)
+    return pipeline, vcf, open(models).read(), res
+
+
+def phase_stutter_rich(tmp, device, device_name="cuda"):
+    """7e: the default path without a stutter model on reads whose CIGARs
+    carry their stutter (utils.simdata.stutter_rich_loci).  (i) the anchor
+    set (12 loci, periods 1-6) in float64 batched in-process (device EM,
+    fused posteriors; K1 + K2), pooled and sequential (host EM; K1 + K3)
+    byte-identical to tests/data/torch_port_stutter_rich_f64.vcf (records
+    that differ logged first) with the models file of
+    tests/data/torch_port_stutter_rich_models_f64.txt (equal text, or each
+    differing parameter within rtol 1e-8: hold_models), float32 batched
+    within the drift bands; (ii) the card's float64 em_train_batch against
+    the host EM on the EM problems of the anchor and full-width sets
+    (phase_em_train); (iii) the full-width set (60 loci x 3 x 170 reads of
+    150 bp) in float32 in-process and with the default pool: every locus
+    settled, loci/s, host and device-wait s, the haplotype-count histogram,
+    dispatches not fused (H_pad > 32), launches per dispatch; then K1 and
+    K2 on the arguments of their most frequent launch shape there against
+    their plain versions, timed beside the bound.  Each run's launches
+    counted from 0.  Every check of (i) and (ii) runs before a failure is
+    raised."""
+    import torch
+    from hipstr_tpu_torch.ops import hmm2
+    from hipstr_tpu_torch.ops.emission import stutter_emissions
+    from hipstr_tpu_torch.ops.stutter_emission import stutter_emissions_plain
+    from hipstr_tpu_torch.utils.simdata import (STUTTER_RICH_ANCHOR,
+                                                STUTTER_RICH_FULL,
+                                                stutter_rich_loci,
+                                                write_stutter_rich)
+    t0 = time.perf_counter()
+    anchor, full = f"{tmp}/anchor", f"{tmp}/full"
+    write_stutter_rich(anchor, stutter_rich_loci(**STUTTER_RICH_ANCHOR))
+    write_stutter_rich(full, stutter_rich_loci(**STUTTER_RICH_FULL))
+    log(f"stutter-rich datasets written in {time.perf_counter() - t0:.2f} s")
+    want_models = open(STUTTER_RICH_MODELS).read()
+    n_anchor = len(vcf_body(STUTTER_RICH_VCF))
+    faults, out = [], {}
+    for label, dtype, extra in (
+            ("stutter-rich f64 batched", "float64", ["--host-workers", "1"]),
+            ("stutter-rich f64 pooled", "float64",
+             ["--host-workers", str(EM_POOL_WORKERS)]),
+            ("stutter-rich f64 sequential", "float64", ["--batch-loci", "0"]),
+            ("stutter-rich f32 batched", "float32", ["--host-workers", "1"])):
+        pipeline, vcf, models, res = stutter_rich_run(
+            label, anchor, dtype, extra, n_anchor, device_name)
+        try:
+            same = hold_to_reference(label, vcf, STUTTER_RICH_VCF)
+            res["byte_identical"] = same
+            if dtype == "float64":
+                if same != n_anchor:
+                    raise AssertionError(
+                        f"{label}: {n_anchor - same} records not "
+                        f"byte-identical to "
+                        f"{os.path.relpath(STUTTER_RICH_VCF, ROOT)}")
+                res["models_equal_text"] = models == want_models
+                hold_models(label, models, want_models, pipeline._stutter_out)
+                log(f"{label}: models file "
+                    + ("equal to the anchor's" if models == want_models else
+                       "within rtol 1e-8 of the anchor's"))
+        except AssertionError as exc:
+            log(f"FAULT {exc}")
+            faults.append(str(exc))
+        out[label] = res
+    check_no_jax()
+    for label, d, n in (("anchor", anchor, n_anchor),
+                        ("full width", full, STUTTER_RICH_FULL["n_loci"])):
+        try:
+            out[f"em_train {label}"] = phase_em_train(
+                em_problems(d, n, f"{d}/snps.vcf.gz"), device,
+                f"stutter-rich {label}")
+        except AssertionError as exc:
+            log(f"FAULT {exc}")
+            faults.append(str(exc))
+    if faults:
+        raise AssertionError(f"phase 7e: {len(faults)} faults: {faults}")
+
+    n_full = STUTTER_RICH_FULL["n_loci"]
+    k1 = LeaderCapture(hmm2, "stutter_emissions", shape_emission)
+    k2 = LeaderCapture(hmm2, "segment_kernel", shape_segment)
+    with k1, k2, DispatchLog() as dl:
+        _, vcf_a, _, a = stutter_rich_run(
+            "stutter-rich full f32 in-process", full, "float32",
+            ["--host-workers", "1"], n_full, device_name)
+    haps = Counter(h for *_, hs in dl.rows for h in hs)
+    unfused = sum(1 for _, _, fused, _ in dl.rows if not fused)
+    if len(dl.rows) != a["dispatches"]:
+        raise AssertionError(f"{len(dl.rows)} dispatches logged, the run "
+                             f"counted {a['dispatches']}")
+    a.update(hap_hist=dict(sorted(haps.items())), unfused_dispatches=unfused,
+             h_pad_hist=dict(sorted(Counter(h for _, h, _, _ in dl.rows)
+                                    .items())),
+             launches_per_dispatch={k: v / a["dispatches"] for k, v in
+                                    a["launches"].items()})
+    log(f"stutter-rich full f32 in-process: haplotypes per locus-dispatch "
+        f"{a['hap_hist']}, H_pad per dispatch {a['h_pad_hist']}, "
+        f"{unfused} of {a['dispatches']} dispatches not fused (H_pad > 32), "
+        f"launches per dispatch {a['launches_per_dispatch']}")
+    log_shapes("stutter-rich full", {"emission": k1.counts,
+                                     "segment": k2.counts})
+    _, vcf_b, _, b = stutter_rich_run(
+        "stutter-rich full f32 pooled", full, "float32", [], n_full,
+        device_name)
+    b["records_equal_in_process"] = sum(
+        x == y for x, y in zip(vcf_body(vcf_b), vcf_body(vcf_a)))
+    hold_bodies("stutter-rich full f32 pooled vs in-process",
+                vcf_body(vcf_b), vcf_body(vcf_a), show=False)
+    out.update(full_in_process=a, full_pooled=b)
+
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=device)
+    real = {}
+    for name, cap, kernel, plain, bound_fn in (
+            ("emission", k1, stutter_emissions, stutter_emissions_plain,
+             bound_emission),
+            ("segment", k2, hmm2.segment_kernel, hmm2.segment_forward_plain,
+             bound_segment)):
+        args, kwargs = cap.args[cap.leader]
+        real[name] = time_real(name, kernel, plain, bound_fn,
+                               tree_map(lambda t: t.to(device), args), kwargs,
+                               cap.leader, cap.counts[cap.leader], flush)
+    del flush
+    out["real"] = real
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"phase 7e (stutter-rich) took {out['phase_s']:.1f} s")
     check_no_jax()
     return out
 
@@ -1538,8 +1782,6 @@ def phase_periods(tmp, device_name="cuda"):
     the fused posteriors on the card at prior ratios (A = 2-5, diploid and
     haploid) printing every field as the host's.  Each run's launches
     counted from 0."""
-    import torch
-    from hipstr_tpu_torch import cli, kernels
     from hipstr_tpu_torch.device import resolve_device
     from hipstr_tpu_torch.utils.simdata import (LEARN_ARGS, em_tie_loci,
                                                 write_sim)
@@ -1556,35 +1798,17 @@ def phase_periods(tmp, device_name="cuda"):
     out = {}
     for label, d, ref, dtype, extra in runs:
         vcf = f"{d}/{label.replace(' ', '_')}.vcf"
-        torch.cuda.synchronize()
-        kernels.reset_launches()
-        t0 = time.perf_counter()
-        pipeline, counters = cli.run(
-            ["--bams", f"{d}/sim.bam", "--fasta", f"{d}/sim.fa",
-             "--regions", f"{d}/regions.bed", "--str-vcf", vcf, "--dtype",
-             dtype, "--device", device_name, "--silent"] + LEARN_ARGS
-            + extra)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = dict(kernels.LAUNCHES)
-        batched = "--batch-loci" not in extra
-        waves = pipeline.last_run_stats["em_waves"] if batched else 0
-        log(f"{label}: success={counters.genotype_success} "
-            f"fail={counters.genotype_fail} em_waves={waves} wall "
-            f"{wall:.3f} s launches {launches}")
-        if counters.genotype_fail or counters.genotype_success != len(
-                vcf_body(ref)):
-            raise AssertionError(f"{label}: not every locus genotyped")
-        if batched and not waves:
-            raise AssertionError(f"{label}: no device EM wave")
-        check_mode_launches(label, launches, batched, True)
+        _, out[label] = learn_run(
+            label, ["--bams", f"{d}/sim.bam", "--fasta", f"{d}/sim.fa",
+                    "--regions", f"{d}/regions.bed", "--str-vcf", vcf,
+                    "--silent"] + LEARN_ARGS, dtype, extra,
+            len(vcf_body(ref)), device_name)
         # every record that differs is logged before a raise
         same = hold_to_reference(label, vcf, ref)
         if dtype == "float64" and same != len(vcf_body(ref)):
             raise AssertionError(f"{label}: not byte-identical to "
                                  f"{os.path.relpath(ref, ROOT)}")
-        out[label] = dict(wall_s=wall, launches=launches, em_waves=waves,
-                          byte_identical=same)
+        out[label]["byte_identical"] = same
     check_no_jax()
     device = resolve_device(device_name)
     diffs, bad = {}, []
@@ -2879,10 +3103,12 @@ def main() -> int:
         mode_launches, loci, mode_stats = phase_modes(f"{tmp}/slice", device)
         phase_em_sequential(f"{tmp}/slice")
         em_stats = phase_em(f"{tmp}/slice")
-        em_stats["train"] = phase_em_train(f"{tmp}/slice", device)
+        em_stats["train"] = phase_em_train(em_problems(f"{tmp}/slice"),
+                                           device)
         em_stats["train"]["stutter_free"] = phase_em_ties(device)
         os.makedirs(f"{tmp}/ref_em")
         phase_em_reference(f"{tmp}/ref_em")
+        stutter_rich = phase_stutter_rich(f"{tmp}/stutter_rich", device)
         phase_reference(f"{tmp}/ref")
         t0 = time.perf_counter()
         periods = phase_periods(f"{tmp}/periods")
@@ -2928,6 +3154,7 @@ def main() -> int:
             f"{time.perf_counter() - t0:.1f} s")
     log(json.dumps({"slice": slice_stats, "sequential": seq_stats,
                     "modes": mode_stats, "em": em_stats, "periods": periods,
+                    "stutter_rich": stutter_rich,
                     "golden": golden,
                     "denovo": denovo, "scale": scale, "card": card,
                     "measuring": measuring, "shards": shards,
@@ -2948,6 +3175,16 @@ def main() -> int:
             share=r["share"], exp_log=r["exp_log"], shape=r["shape"],
             library_ms=None, main_shape_ms=main32[name][1],
             main_shape_bound_ms=main32[name][3]))
+        if name in stutter_rich["real"]:  # 7e: the full-width set, f32
+            s = stutter_rich["real"][name][0]
+            summary["kernels"][-1].update(
+                stutter_rich_launches=stutter_rich["full_in_process"][
+                    "launches"][name],
+                stutter_rich_shape=s["shape"], stutter_rich_ms=s["ms"],
+                stutter_rich_plain_ms=s["plain_ms"],
+                stutter_rich_bound_ms=s["bound_ms"],
+                stutter_rich_bound_by=s["bound_by"],
+                stutter_rich_max_abs_err=s["max_abs_err"])
         if name in soak_real:        # phase 13c: the soak's shape, f32
             s = soak_real[name][0]
             summary["kernels"][-1].update(

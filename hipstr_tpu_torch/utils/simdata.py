@@ -13,6 +13,17 @@ test's dataset, seeds and flags, with `mode_runs`, `mode_vcf_body` and
 `mode_products` for their outputs.  The loci
 come from the port's copy of the simulator (utils/simulate.py), seeded, so
 the same dataset is made anew on any machine.
+
+Every writer above gives each read an all-M CIGAR.  Without a stutter
+model a locus's EM learns from the reads' CIGARs (the repeat-length change
+an aligner writes as an I or D), so on those datasets it sees one allele
+size and stops at iteration 2 with a model of pseudocounts alone: they
+never exercise the EM's loop.  `stutter_rich_loci` / `write_stutter_rich`
+write reads whose CIGARs carry their allele's and stutter's length change
+(the anchor set `STUTTER_RICH_ANCHOR` behind
+tests/data/torch_port_stutter_rich_f64.vcf, and the full-width set
+`STUTTER_RICH_FULL`); `stutter_rich_args` is the genotyper's command line
+on them.
 """
 
 from __future__ import annotations
@@ -177,6 +188,186 @@ def stutter_free_problems():
     {x:.2f} at n = 35 (0.025) and n = 195 (0.005)."""
     return [(False, period, [[0] * n], [[0.0] * n], [[0.0] * n])
             for n, period in ((35, 3), (195, 8))]
+
+
+# ---------------------------------------------------------- stutter-rich
+class StutterRichLocus(NamedTuple):
+    """One locus of stutter_rich_loci: its contig, the repeat's Region, the
+    phased SNP (dict(pos, ref, alt)), the sample names and the reads
+    (dicts of name, sample, seq, quals, start, rev, cigar)."""
+    chrom: str
+    chrom_seq: str
+    region: object
+    snp: object
+    sample_names: list
+    reads: list
+
+
+# the anchor set (tests/data/torch_port_stutter_rich_f64.vcf) and the
+# full-width set (the bench trio's depth, 150-bp reads)
+STUTTER_RICH_ANCHOR = dict(n_loci=12, reads_per_sample=50, read_len=100,
+                           base_seed=52000, chrom_prefix="chrU")
+STUTTER_RICH_FULL = dict(n_loci=60, reads_per_sample=170, read_len=150,
+                         base_seed=53000, chrom_prefix="chrW")
+# the genotyper's options on them: no stutter model, so each locus learns
+# one from its reads' CIGARs
+STUTTER_RICH_ARGS = ["--min-reads", "15", "--use-unpaired"]
+
+
+def stutter_rich_args(d: str, out: str, regions: str = None):
+    """The genotyper's command line on the stutter-rich set written in `d`
+    (its phased SNPs included), writing `out`; `regions` replaces the BED
+    of every locus (no --device, --dtype or mode flags)."""
+    return (["--bams", f"{d}/sim.bam", "--fasta", f"{d}/sim.fa",
+             "--regions", regions or f"{d}/regions.bed", "--snp-vcf",
+             f"{d}/snps.vcf.gz", "--str-vcf", out, "--silent"]
+            + STUTTER_RICH_ARGS)
+STUTTER_RICH_FLANK = 300
+STUTTER_RICH_MARGIN = 12     # bp of flank a read keeps on each side
+
+
+def _motif(rng, period: int) -> str:
+    """A repeat unit of `period` bases that is no repeat of a shorter one."""
+    while True:
+        m = "".join(rng.choice(list("ACGT"), size=period))
+        if not any(period % p == 0 and m == m[:p] * (period // p)
+                   for p in range(1, period)):
+            return m
+
+
+def stutter_rich_loci(n_loci: int = 12, n_samples: int = 3,
+                      reads_per_sample: int = 50, read_len: int = 100,
+                      base_seed: int = 52000, chrom_prefix: str = "chrU"):
+    """Loci whose reads carry their repeat-length change in the CIGAR, as
+    an aligner writes it, so that the stutter EM learns from them.
+
+    Locus i has repeat period 1 + (i % 6), a reference repeat of 8-10 units
+    (6-7 at periods 5-6), 300-bp random flanks, and per sample two alleles
+    drawn from -3 .. +3 units of the reference.  Its stutter rates are
+    drawn per locus: in-frame up and down each 0.02-0.15 with a geometric
+    unit count (p 0.9), and at periods >= 2 a small out-of-frame share
+    (+-1 bp, 0.005-0.02 each).  A read's haplotype carries its allele's
+    and its stutter's length change at the repeat's start; the read keeps
+    12 bp of flank on both sides (an in-frame stutter that would not fit
+    is cut to the units that do), has sequencing errors at 0.002 per base,
+    and its CIGAR holds the net change as one I or D at the repeat's start
+    (M-I-M or M-D-M; all M when the net change is 0).  Every locus has a
+    het SNP 20 bp left of the repeat, haplotype 2 carrying the alternate
+    base in every sample (as soak_locus), so the EM's reads carry phasing
+    weights.  Deterministic from `base_seed`."""
+    from ..io.regions import Region
+    flank, margin = STUTTER_RICH_FLANK, STUTTER_RICH_MARGIN
+    names = [f"SAMPLE{s:03d}" for s in range(n_samples)]
+    locs = []
+    for i in range(n_loci):
+        rng = np.random.default_rng(base_seed + i)
+        period = 1 + (i % 6)
+        ref_units = (8 + (i // 6) % 3) if period <= 4 else 6 + (i // 6) % 2
+        if period * (ref_units + 3) > read_len - 2 * margin:
+            raise ValueError(f"locus {i}: the longest allele does not fit "
+                             f"a {read_len}-bp read")
+        motif = _motif(rng, period)
+        lflank = "".join(rng.choice(list("ACGT"), size=flank))
+        rflank = "".join(rng.choice(list("ACGT"), size=flank))
+        chrom = f"{chrom_prefix}{i}"
+        chrom_seq = lflank + motif * ref_units + rflank
+        region = Region(chrom, flank, flank + period * ref_units, period,
+                        f"SR{i}")
+        in_up, in_down = rng.uniform(0.02, 0.15, 2)
+        out_up, out_down = ((0.0, 0.0) if period == 1
+                            else rng.uniform(0.005, 0.02, 2))
+        pos = flank - 20
+        snp = dict(pos=pos, ref=chrom_seq[pos], alt=str(rng.choice(
+            [b for b in "ACGT" if b != chrom_seq[pos]])))
+        reads = []
+        for name in names:
+            units = [ref_units + int(u) for u in rng.integers(-3, 4, 2)]
+            for r in range(reads_per_sample):
+                hap = int(rng.integers(0, 2))
+                u = rng.random()
+                fits = (read_len - 2 * margin) // period - units[hap]
+                if u < in_up:
+                    d = period * min(int(rng.geometric(0.9)), fits)
+                elif u < in_up + in_down:
+                    d = -period * min(int(rng.geometric(0.9)), units[hap])
+                elif u < in_up + in_down + out_up:
+                    d = 1
+                elif u < in_up + in_down + out_up + out_down:
+                    d = -1
+                else:
+                    d = 0
+                rep = motif * units[hap]
+                rep = ((motif * (d // period + 1))[:d] + rep if d > 0
+                       else rep[-d:])
+                left = lflank
+                if hap == 1:
+                    left = lflank[:snp["pos"]] + snp["alt"] + lflank[
+                        snp["pos"] + 1:]
+                hap_seq = left + rep + rflank
+                start = int(rng.integers(
+                    flank - (read_len - len(rep) - margin),
+                    flank - margin + 1))
+                seq = list(hap_seq[start:start + read_len])
+                for k in range(read_len):
+                    if rng.random() < 0.002:
+                        seq[k] = str(rng.choice(
+                            [b for b in "ACGT" if b != seq[k]]))
+                a = flank - start
+                net = len(rep) - period * ref_units
+                if net > 0:
+                    cigar = [(a, "M"), (net, "I"), (read_len - a - net, "M")]
+                elif net < 0:
+                    cigar = [(a, "M"), (-net, "D"), (read_len - a, "M")]
+                else:
+                    cigar = [(read_len, "M")]
+                reads.append(dict(
+                    name=f"{name}_read{r}", sample=name, seq="".join(seq),
+                    quals="I" * read_len, start=start,
+                    rev=bool(rng.random() < 0.5), cigar=cigar))
+        locs.append(StutterRichLocus(chrom, chrom_seq, region, snp, names,
+                                     reads))
+    return locs
+
+
+def write_stutter_rich(out: str, locs) -> None:
+    """sim.fa, regions.bed, sim.bam (one read group per sample, each read
+    with its CIGAR) and the phased SNPs' snps.vcf.gz (+ .tbi) for
+    stutter_rich_loci."""
+    os.makedirs(out, exist_ok=True)
+    write_fasta(f"{out}/sim.fa", [(l.chrom, l.chrom_seq) for l in locs])
+    with open(f"{out}/regions.bed", "w") as fh:
+        for l in locs:
+            r = l.region
+            fh.write(f"{r.chrom}\t{r.start + 1}\t{r.stop}\t{r.period}\t"
+                     f"{(r.stop - r.start) / r.period:.1f}\t{r.name}\n")
+    hdr = ("@HD\tVN:1.6\tSO:coordinate\n"
+           + "".join(f"@SQ\tSN:{l.chrom}\tLN:{len(l.chrom_seq)}\n"
+                     for l in locs)
+           + "".join(f"@RG\tID:rg{n}\tSM:{n}\tLB:lib{n}\n"
+                     for n in locs[0].sample_names))
+    w = BamWriter(f"{out}/sim.bam", [l.chrom for l in locs],
+                  [len(l.chrom_seq) for l in locs], hdr)
+    for ref_id, l in enumerate(locs):
+        for rd in sorted(l.reads, key=lambda rd: rd["start"]):
+            w.write(BamRecord(
+                name=f"{l.chrom}_{rd['name']}",
+                flag=0x10 if rd["rev"] else 0, ref_id=ref_id,
+                pos=rd["start"], mapq=60, cigar=rd["cigar"], mate_ref_id=-1,
+                mate_pos=-1, tlen=0, seq=rd["seq"], qual=rd["quals"],
+                tags={"RG": ("Z", f"rg{rd['sample']}")}))
+    w.close()
+    names = locs[0].sample_names
+    gt = "\t".join("0|1" for _ in names)
+    write_bgzipped_vcf(
+        f"{out}/snps.vcf.gz",
+        ["##fileformat=VCFv4.1"]
+        + [f"##contig=<ID={l.chrom},length={len(l.chrom_seq)}>"
+           for l in locs]
+        + ['##FORMAT=<ID=GT,Number=1,Type=String,Description="Genotype">',
+           "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\t"
+           + "\t".join(names)],
+        [f"{l.chrom}\t{l.snp['pos'] + 1}\t.\t{l.snp['ref']}\t"
+         f"{l.snp['alt']}\t.\t.\t.\tGT\t{gt}" for l in locs])
 
 
 def write_golden(outdir: str, *, loci: int, samples: int, reads: int,
