@@ -6,10 +6,11 @@
 Phases (any failure raises and exits non-zero):
   1. environment: torch/CUDA/nvcc versions, triton, the card's name and
      power limit, whether the native host library loaded;
-  2. build: the four CUDA kernels (K1 emission, K2 segment, K4 flank scan,
-     K3 fused segment) from hipstr_tpu_torch/csrc, one nvcc each, all at
-     once; ptxas's registers, stack frame and spills of every kernel
-     instance;
+  2. build: the five CUDA kernels (K1 emission, K2 segment, K4 flank scan,
+     K3 fused segment, and the port's own ordered per-sample sum of the
+     fused posteriors, sample_sum) from hipstr_tpu_torch/csrc, one nvcc
+     each, all at once; ptxas's registers, stack frame and spills of every
+     kernel instance;
   3. each kernel against its plain PyTorch version on the card, float32
      and float64, at the main-path shape and a deep shape, with times (K4
      and K3 by `event_ms`: their one-locus launches are shorter than the
@@ -17,11 +18,12 @@ Phases (any failure raises and exits non-zero):
      and K2 at L = 384 and 512; K4 and K3 at every L bucket (64 .. 512);
      K1, K2, K3 and K4 on the real reads of the period-9 locus of
      utils.simdata.period_loci (stutter-row shifts of up to 54 lanes),
-     both orientations, packed by the main path's host code;
+     both orientations, packed by the main path's host code; sample_sum
+     bit-equal to its plain version at the trio's and the cohort's widths;
   4. the batched slice: `hipstr_tpu_torch.cli` in-process on 60 simulated
      30x trio loci (float32, --batch-loci 32); 60/60 genotyped, K1 and K2
-     launched at least twice per dispatch, K3 and K4 never, JAX never
-     imported;
+     launched at least twice per dispatch, sample_sum launched, K3 and K4
+     never, JAX never imported;
   5. the sequential slice: the same run with --batch-loci 0; 60/60
      genotyped, per aligner call two K1 and two K3 launches (fused mode,
      the sequential path's), no K2 or K4;
@@ -75,6 +77,23 @@ Phases (any failure raises and exits non-zero):
      launches per dispatch; then K1 and K2 on the arguments of their most
      frequent launch shape there, float32 and float64, against their
      plain versions, timed (L2 flushed) beside the bound;
+ 7f. the default path at cohort width (utils.simdata's COHORT_* sets:
+     stutter-rich reads, a phased SNP, no stutter model): (i) COHORT_ANCHOR
+     (6 loci, periods 1-6, 100 samples x 20 reads of 100 bp) in float64
+     batched, pooled and sequential byte-identical to
+     tests/data/torch_port_cohort_f64.vcf with its models file, float32
+     within the bands, and every per-sample sum of the fused posteriors
+     bit-equal to the host's np.add.at order (SumAudit); (ii) COHORT_WIDE
+     (2 loci, 160 x 12) float64 batched and sequential against
+     tests/data/torch_port_cohort160_f64.vcf; (iii) COHORT_OVER (250 x 12)
+     fails both loci at packing with the JAX CLI's messages
+     (tests/data/torch_port_cohort_over.json), exit 0, no record; (iv) the
+     card's float64 em_train_batch against the host EM on both anchor
+     sets' problems; (v) COHORT_FULL (12 loci x 100 x 20) float32
+     in-process and pooled: every locus settled, loci/s, host and
+     device-wait s, peak device memory, buckets per dispatch, launches per
+     dispatch; K1, K2 and sample_sum at their most frequent launch shape
+     there, timed beside the bound;
   8. float64 cross-check: the port's VCF on the dataset behind
      tests/data/torch_port_ref_f64.vcf, batched (K1 + K2) and sequential
      (K1 + K3), against that file;
@@ -88,12 +107,13 @@ Phases (any failure raises and exits non-zero):
      from 0; the fused posteriors on the card at prior ratios (A = 2-5,
      diploid and haploid) printing every field as the host posteriors do;
   9. real shapes: each kernel at the two launch shapes its path used most
-     (K1 and K2 from phase 4's histogram, K3 from phase 5's, K4 from the
-     flank mode over the slice's loci), on the arguments that path really
-     passed (captured in a second run), float32 and float64: against its
-     plain version, CUDA-event times over 20 launches with L2 warm and with
-     L2 flushed (64 MiB written before each launch), and the bound the
-     card allows for that work (`bound`);
+     (K1, K2 and sample_sum from phase 4's histogram, K3 from phase 5's,
+     K4 from the flank mode over the slice's loci; sample_sum also beside
+     one index_add_ on its inputs, its library_ms), on the arguments that
+     path really passed (captured in a second run), float32 and float64:
+     against its plain version, CUDA-event times over 20 launches with L2
+     warm and with L2 flushed (64 MiB written before each launch), and the
+     bound the card allows for that work (`bound`);
  10. golden: every configuration of utils.simdata.GOLDEN_CONFIGS (the
      datasets and flags of the golden suites) through the CLI in float64
      batched and sequential and in float32 batched, each held to its
@@ -155,12 +175,13 @@ Phases (any failure raises and exits non-zero):
      one card a line says that this leg was not run.  Phases 4, 7 and 13
      count K1 and K2 per card-shard (a dispatch on one card is one).
 
-The in-process runs of phases 4, 7(a), 7e, 8 and 9 pass --host-workers 1, so
+The in-process runs of phases 4, 7(a), 7e, 7f, 8 and 9 pass
+--host-workers 1, so
 their numbers stay comparable whatever the machine's core count.  After
 every phase no module of JAX or of the JAX package may be loaded.
 Prints the kernel summary as one JSON line (per kernel its real-shape
-time, bound and share of the bound; K1 and K2 also at phase 7e's and 13c's
-shapes), then as the last line {"ok": true,
+time, bound and share of the bound; K1 and K2 also at phase 7e's, 7f's
+and 13c's shapes, sample_sum at 7f's), then as the last line {"ok": true,
 "device": {...}}.  Needs one visible CUDA card.
 
     python3 chip_smoke.py --cross-card
@@ -191,6 +212,15 @@ STUTTER_RICH_VCF = os.path.join(ROOT, "tests", "data",
                                 "torch_port_stutter_rich_f64.vcf")
 STUTTER_RICH_MODELS = os.path.join(ROOT, "tests", "data",
                                    "torch_port_stutter_rich_models_f64.txt")
+COHORT_VCF = os.path.join(ROOT, "tests", "data", "torch_port_cohort_f64.vcf")
+COHORT_MODELS = os.path.join(ROOT, "tests", "data",
+                             "torch_port_cohort_models_f64.txt")
+COHORT160_VCF = os.path.join(ROOT, "tests", "data",
+                             "torch_port_cohort160_f64.vcf")
+COHORT160_MODELS = os.path.join(ROOT, "tests", "data",
+                                "torch_port_cohort160_models_f64.txt")
+COHORT_OVER_JSON = os.path.join(ROOT, "tests", "data",
+                                "torch_port_cohort_over.json")
 DENOVO_STR_VCF = os.path.join(ROOT, "tests", "data",
                               "torch_port_denovo_str_f64.vcf")
 # phase 10's runs of each golden configuration: (label, dtype, mode flags)
@@ -217,9 +247,12 @@ TOL = {("emission", "float64"): (1e-10, 1e-10),
        ("emission", "float32"): (1e-4, 1e-3),
        ("segment", "float32"): (1e-4, 1e-3),
        ("flank_scan", "float32"): (1e-4, 1e-3),
-       ("segment_scan", "float32"): (1e-4, 1e-3)}
-MAIN = dict(G=32, O=8, P=64, L=128, Bmax=64, H=8)
-DEEP = dict(MAIN, P=256)
+       ("segment_scan", "float32"): (1e-4, 1e-3),
+       # the ordered per-sample sum adds in the plain version's order
+       ("sample_sum", "float64"): (0.0, 0.0),
+       ("sample_sum", "float32"): (0.0, 0.0)}
+MAIN = dict(G=32, O=8, P=64, L=128, Bmax=64, H=8, RD=512, Sm=4, per=170)
+DEEP = dict(MAIN, P=256, RD=4096, Sm=128, per=20)
 # K1/K2 past 8 lanes a thread: other kernel instances (K2 keeps float64
 # lane constants in shared memory, K1 one thread per lane in float64)
 WIDE = (dict(MAIN, G=8, P=16, L=384), dict(MAIN, G=8, P=16, L=512))
@@ -254,6 +287,11 @@ SOURCES = {
                    "hipstr_tpu/ops/pallas_hmm.py:55"),
     "segment_scan": ("hipstr_tpu_torch/csrc/segment_scan.cu",
                      "hipstr_tpu/ops/pallas_hmm.py:130"),
+    # the port's own kernel: the fused posteriors' per-sample sum, an XLA
+    # op (segment_sum) in the JAX package, added in the host's order
+    "sample_sum": ("hipstr_tpu_torch/csrc/sample_sum.cu",
+                   "none (the port's own; the XLA segment_sum at "
+                   "hipstr_tpu/ops/posteriors.py:139)"),
 }
 SENTINEL = -1.0e20   # values at or below are NEG-derived padding
 # the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W):
@@ -454,6 +492,41 @@ def check_emission(shape, dtype_name, device, rng):
     ms = cuda_ms(lambda: stutter_emissions(*args), 5)
     plain_ms = cuda_ms(lambda: stutter_emissions_plain(*args), 2)
     return err, ms, plain_ms, bound_emission(args, {}, dtype_name)["bound_ms"]
+
+
+def sum_inputs(G, RD, Sm, per, C, dtype, device, rng):
+    """The ordered sum's arguments for G loci of Sm samples x `per` reads
+    (padded to RD with weight-0 reads of sample 0), sampled as the fused
+    posteriors' per-read cells: (contrib, order, start, count)."""
+    import torch
+    from hipstr_tpu_torch.ops.posteriors import sample_runs
+    n = min(Sm * per, RD)
+    sample = torch.zeros((G, RD), dtype=torch.int64)
+    sample[:, :n] = torch.from_numpy(rng.integers(0, Sm, (G, n)))
+    weights = torch.zeros((G, RD), dtype=dtype)
+    weights[:, :n] = 1.0
+    contrib = torch.from_numpy(rng.uniform(-90.0, -1.0, (G, RD, C))).to(
+        dtype) * weights[:, :, None]
+    runs = sample_runs(sample.to(device), weights.to(device), Sm)
+    return (contrib.to(device), *runs)
+
+
+def check_sample_sum(shape, dtype_name, device, rng):
+    """The ordered per-sample sum (csrc/sample_sum.cu) against its plain
+    version: bit-equal (TOL 0).  (err, ms, plain ms, bound ms)."""
+    from hipstr_tpu_torch.device import resolve_dtype
+    from hipstr_tpu_torch.ops.posteriors import (sample_sum_kernel,
+                                                 sample_sums_plain)
+    import torch
+    args = sum_inputs(shape["G"], shape["RD"], shape["Sm"], shape["per"],
+                      shape["H"] ** 2, resolve_dtype(dtype_name), device, rng)
+    got, ref = sample_sum_kernel(*args), sample_sums_plain(*args)
+    torch.cuda.synchronize()
+    err = compare("sample_sum", got, ref, dtype_name)
+    ms = event_ms(lambda: sample_sum_kernel(*args), 5)
+    plain_ms = cuda_ms(lambda: sample_sums_plain(*args), 2)
+    return err, ms, plain_ms, bound_sample_sum(args, {}, dtype_name)[
+        "bound_ms"]
 
 
 def real_locus(tmp, chrom=None):
@@ -699,8 +772,10 @@ def phase_kernels(device, tmp):
             f = check_flank_scan(P, dtype_name, device, rng, arrays, statics)
             k3 = check_segment_scan(P, dtype_name, device, rng, arrays,
                                     statics)
+            ss = check_sample_sum(shape, dtype_name, device, rng)
             results[(label, dtype_name)] = dict(
-                emission=e, segment=tuple(s), flank_scan=f, segment_scan=k3)
+                emission=e, segment=tuple(s), flank_scan=f, segment_scan=k3,
+                sample_sum=ss)
             log(f"{label} {dtype_name} G={shape['G']} O={shape['O']} "
                 f"P={shape['P']} L={shape['L']} Bmax={shape['Bmax']} "
                 f"H={shape['H']} R={R2}: emission {timed(e)} | segment "
@@ -708,6 +783,9 @@ def phase_kernels(device, tmp):
             log(f"{label} {dtype_name} one locus P={P} H={H} L={L} O={O} "
                 f"R={R} sr={statics[2]} period={statics[4]}: "
                 f"flank_scan {timed(f)} | segment_scan {timed(k3)}")
+            log(f"{label} {dtype_name} G={shape['G']} RD={shape['RD']} "
+                f"Sm={shape['Sm']} C={shape['H'] ** 2}: sample_sum "
+                f"{timed(ss)}")
     for shape in WIDE:
         for dtype_name in ("float32", "float64"):
             rng = np.random.default_rng(11)
@@ -759,7 +837,8 @@ def phase_slice(tmp, device_name="cuda"):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
-    shapes = {k: kernels.SHAPES[k].copy() for k in ("emission", "segment")}
+    shapes = {k: kernels.SHAPES[k].copy()
+              for k in ("emission", "segment", "sample_sum")}
     log_shapes("slice", shapes)
     dispatches = pipeline.last_run_stats["dispatches"]
     shards = pipeline.last_run_stats["card_shards"]
@@ -776,6 +855,8 @@ def phase_slice(tmp, device_name="cuda"):
         if launches[name] < 2 * shards:
             raise AssertionError(f"kernel {name}: {launches[name]} launches "
                                  f"for {shards} card-shards")
+    if not launches["sample_sum"]:     # the fused posteriors, H_pad <= 32
+        raise AssertionError("no fused posteriors' ordered sum launched")
     for name in ("flank_scan", "segment_scan"):   # per-locus kernels only
         if launches[name]:
             raise AssertionError(f"kernel {name} launched on the batched "
@@ -817,7 +898,8 @@ def phase_sequential(tmp, device_name="cuda"):
     log(pipeline.timer.summary())
     if counters.genotype_success != SLICE_LOCI or counters.genotype_fail:
         raise AssertionError("sequential run did not genotype every locus")
-    want = dict(emission=2 * n, segment_scan=2 * n, segment=0, flank_scan=0)
+    want = dict(emission=2 * n, segment_scan=2 * n, segment=0, flank_scan=0,
+                sample_sum=0)
     if n < SLICE_LOCI or launches != want:
         raise AssertionError(f"sequential: {n} aligner calls, launches "
                              f"{launches}, expected {want}")
@@ -869,12 +951,21 @@ def flank_mode():
         genotyper.compute_hap_log_likelihoods = orig
 
 
+def batched_launches(launches: dict, n: int) -> bool:
+    """The launches of n card-shards of the batched path: two K1 and two K2
+    each, no K3 or K4, and one ordered sum for each shard whose posteriors
+    were fused (H_pad <= 32), at least one."""
+    return (dict(launches, sample_sum=0) == dict(
+        emission=2 * n, segment=2 * n, flank_scan=0, segment_scan=0,
+        sample_sum=0) and 0 < launches["sample_sum"] <= n)
+
+
 def want_launches(mode: str, n: int) -> dict:
     """Kernel launches of n aligner calls in `mode`: two K1 and two K3
     (fused) or four K4 (flank: two scans an orientation)."""
     return dict(emission=2 * n, segment=0,
                 segment_scan=2 * n if mode == "fused" else 0,
-                flank_scan=4 * n if mode == "flank" else 0)
+                flank_scan=4 * n if mode == "flank" else 0, sample_sum=0)
 
 
 def phase_modes(tmp, device, device_name="cuda"):
@@ -1375,10 +1466,23 @@ def phase_em_ties(device):
 
 
 # --------------------------------------------------------------- phase 7e
+def locus_buckets(arrays, statics) -> dict:
+    """The padded shape of one locus that prepare_locus packed: its pool
+    (P), read lanes (L), haplotypes (H_pad), repeat options (O) and, with
+    fused posteriors, its posterior reads (RD) and samples (Sm)."""
+    pm = arrays[7] if len(arrays) > 7 else None
+    return dict(P=int(arrays[5].shape[0]), L=int(arrays[0].codes.shape[1]),
+                H_pad=int(arrays[4].seed_char.shape[0]),
+                O=int(arrays[2].lpmf.shape[0]),
+                RD=None if pm is None else int(pm["pool_row"].shape[0]),
+                Sm=statics[7])
+
+
 class DispatchLog:
     """While active, records each batched dispatch (chunk) of the port's
     executor: (G, H_pad, fused posteriors, each locus's real haplotype
-    count).  ops/posteriors fuses a dispatch only when H_pad <= 32."""
+    count, the dispatch's locus_buckets).  ops/posteriors fuses a dispatch
+    only when H_pad <= 32."""
 
     def __enter__(self):
         from hipstr_tpu_torch.parallel import executor
@@ -1389,7 +1493,8 @@ class DispatchLog:
         def wrapper(aligner, chunk):
             rows.append((len(chunk), chunk[0].arrays[4].seed_char.shape[0],
                          chunk[0].statics[7] is not None,
-                         [it.statics[6] for it in chunk]))
+                         [it.statics[6] for it in chunk],
+                         locus_buckets(chunk[0].arrays, chunk[0].statics)))
             return orig(aligner, chunk)
 
         self.cls._dispatch_chunk = wrapper
@@ -1461,6 +1566,49 @@ def stutter_rich_run(label, d, dtype, extra, n_loci, device_name="cuda"):
     return pipeline, vcf, open(models).read(), res
 
 
+# an anchor set's runs: (label, dtype, mode flags)
+ANCHOR_RUNS = (("f64 batched", "float64", ["--host-workers", "1"]),
+               ("f64 pooled", "float64",
+                ["--host-workers", str(EM_POOL_WORKERS)]),
+               ("f64 sequential", "float64", ["--batch-loci", "0"]),
+               ("f32 batched", "float32", ["--host-workers", "1"]))
+
+
+def hold_anchor_runs(tag, d, runs, ref_vcf, ref_models, device_name="cuda"):
+    """The stutter-rich set written in `d` through each of `runs`
+    (ANCHOR_RUNS' form), held to its JAX CLI anchor: float64 byte-identical
+    (records that differ logged first) with the anchor's models file (equal
+    text, or each differing parameter within rtol 1e-8: hold_models),
+    float32 within the drift bands.  Returns (numbers by label, faults);
+    every run is held before a fault is raised."""
+    want_models = open(ref_models).read()
+    n_anchor = len(vcf_body(ref_vcf))
+    faults, out = [], {}
+    for run, dtype, extra in runs:
+        label = f"{tag} {run}"
+        pipeline, vcf, models, res = stutter_rich_run(
+            label, d, dtype, extra, n_anchor, device_name)
+        try:
+            same = hold_to_reference(label, vcf, ref_vcf)
+            res["byte_identical"] = same
+            if dtype == "float64":
+                if same != n_anchor:
+                    raise AssertionError(
+                        f"{label}: {n_anchor - same} records not "
+                        f"byte-identical to {os.path.relpath(ref_vcf, ROOT)}")
+                res["models_equal_text"] = models == want_models
+                hold_models(label, models, want_models, pipeline._stutter_out)
+                log(f"{label}: models file "
+                    + ("equal to the anchor's" if models == want_models else
+                       "within rtol 1e-8 of the anchor's"))
+        except AssertionError as exc:
+            log(f"FAULT {exc}")
+            faults.append(str(exc))
+        out[label] = res
+    check_no_jax()
+    return out, faults
+
+
 def phase_stutter_rich(tmp, device, device_name="cuda"):
     """7e: the default path without a stutter model on reads whose CIGARs
     carry their stutter (utils.simdata.stutter_rich_loci).  (i) the anchor
@@ -1493,36 +1641,10 @@ def phase_stutter_rich(tmp, device, device_name="cuda"):
     write_stutter_rich(anchor, stutter_rich_loci(**STUTTER_RICH_ANCHOR))
     write_stutter_rich(full, stutter_rich_loci(**STUTTER_RICH_FULL))
     log(f"stutter-rich datasets written in {time.perf_counter() - t0:.2f} s")
-    want_models = open(STUTTER_RICH_MODELS).read()
     n_anchor = len(vcf_body(STUTTER_RICH_VCF))
-    faults, out = [], {}
-    for label, dtype, extra in (
-            ("stutter-rich f64 batched", "float64", ["--host-workers", "1"]),
-            ("stutter-rich f64 pooled", "float64",
-             ["--host-workers", str(EM_POOL_WORKERS)]),
-            ("stutter-rich f64 sequential", "float64", ["--batch-loci", "0"]),
-            ("stutter-rich f32 batched", "float32", ["--host-workers", "1"])):
-        pipeline, vcf, models, res = stutter_rich_run(
-            label, anchor, dtype, extra, n_anchor, device_name)
-        try:
-            same = hold_to_reference(label, vcf, STUTTER_RICH_VCF)
-            res["byte_identical"] = same
-            if dtype == "float64":
-                if same != n_anchor:
-                    raise AssertionError(
-                        f"{label}: {n_anchor - same} records not "
-                        f"byte-identical to "
-                        f"{os.path.relpath(STUTTER_RICH_VCF, ROOT)}")
-                res["models_equal_text"] = models == want_models
-                hold_models(label, models, want_models, pipeline._stutter_out)
-                log(f"{label}: models file "
-                    + ("equal to the anchor's" if models == want_models else
-                       "within rtol 1e-8 of the anchor's"))
-        except AssertionError as exc:
-            log(f"FAULT {exc}")
-            faults.append(str(exc))
-        out[label] = res
-    check_no_jax()
+    out, faults = hold_anchor_runs("stutter-rich", anchor, ANCHOR_RUNS,
+                                   STUTTER_RICH_VCF, STUTTER_RICH_MODELS,
+                                   device_name)
     for label, d, n in (("anchor", anchor, n_anchor),
                         ("full width", full, STUTTER_RICH_FULL["n_loci"])):
         try:
@@ -1542,13 +1664,13 @@ def phase_stutter_rich(tmp, device, device_name="cuda"):
         _, vcf_a, _, a = stutter_rich_run(
             "stutter-rich full f32 in-process", full, "float32",
             ["--host-workers", "1"], n_full, device_name)
-    haps = Counter(h for *_, hs in dl.rows for h in hs)
-    unfused = sum(1 for _, _, fused, _ in dl.rows if not fused)
+    haps = Counter(h for _, _, _, hs, _ in dl.rows for h in hs)
+    unfused = sum(1 for _, _, fused, _, _ in dl.rows if not fused)
     if len(dl.rows) != a["dispatches"]:
         raise AssertionError(f"{len(dl.rows)} dispatches logged, the run "
                              f"counted {a['dispatches']}")
     a.update(hap_hist=dict(sorted(haps.items())), unfused_dispatches=unfused,
-             h_pad_hist=dict(sorted(Counter(h for _, h, _, _ in dl.rows)
+             h_pad_hist=dict(sorted(Counter(h for _, h, _, _, _ in dl.rows)
                                     .items())),
              launches_per_dispatch={k: v / a["dispatches"] for k, v in
                                     a["launches"].items()})
@@ -1582,6 +1704,223 @@ def phase_stutter_rich(tmp, device, device_name="cuda"):
     out["real"] = real
     out["phase_s"] = time.perf_counter() - t0
     log(f"phase 7e (stutter-rich) took {out['phase_s']:.1f} s")
+    check_no_jax()
+    return out
+
+
+# --------------------------------------------------------------- phase 7f
+class SumAudit:
+    """While active, every call of ops.posteriors.sample_sums (the fused
+    posteriors' per-sample sums, csrc/sample_sum.cu on the card) is also
+    summed on the host in the host posteriors' order (np.add.at: each
+    sample's reads in order, from 0) and the two compared bit for bit, by
+    dtype: cells, cells that differ, largest |difference|."""
+
+    def __enter__(self):
+        import numpy as np
+        from hipstr_tpu_torch.ops import posteriors
+        self.mod, self.orig = posteriors, posteriors.sample_sums
+        self.stats = {}
+
+        def wrapper(contrib, sample, weights, Sm):
+            out = self.orig(contrib, sample, weights, Sm)
+            c, si = contrib.cpu().numpy(), sample.cpu().numpy()
+            got = out.cpu().numpy()
+            st = self.stats.setdefault(str(c.dtype), dict(
+                calls=0, cells=0, differ=0, max_abs=0.0))
+            for g in range(c.shape[0]):
+                want = np.zeros(got.shape[1:], c.dtype)
+                np.add.at(want, si[g], c[g])
+                st["cells"] += want.size
+                st["differ"] += int(np.sum(got[g] != want))
+                st["max_abs"] = max(st["max_abs"], float(np.max(np.abs(
+                    got[g].astype(np.float64) - want))))
+            st["calls"] += 1
+            return out
+
+        posteriors.sample_sums = wrapper
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.sample_sums = self.orig
+
+
+def run_outcome(stderr: str, vcf: str) -> dict:
+    """What a genotyping run without --silent says of its loci: the
+    Summary line's counts, the per-locus error lines, and the VCF's header
+    and record counts."""
+    summary = [l for l in stderr.splitlines() if "Summary: " in l][-1]
+    counts = dict(kv.split("=") for kv in
+                  summary.split("Summary: ", 1)[1].split())
+    lines = open(vcf).readlines()
+    return dict(summary={k: int(v) for k, v in counts.items()},
+                errors=[l for l in stderr.splitlines()
+                        if l.startswith("ERROR at ")],
+                header_lines=sum(l.startswith("#") for l in lines),
+                records=sum(not l.startswith("#") for l in lines))
+
+
+def over_args(d: str, out: str):
+    """COHORT_OVER's command line: stutter_rich_args without --silent, so
+    that the locus errors and the Summary line are printed."""
+    from hipstr_tpu_torch.utils.simdata import stutter_rich_args
+    return [a for a in stutter_rich_args(d, out) if a != "--silent"]
+
+
+def cohort_over(d, device_name="cuda"):
+    """(iii) COHORT_OVER (250 samples: both pools over the largest P
+    bucket) through the port's CLI (`cli.main`, in-process, float64):
+    exit 0 and the JAX CLI's summary counts, error lines and record count
+    (tests/data/torch_port_cohort_over.json)."""
+    import io
+    from hipstr_tpu_torch import cli, kernels
+    want = json.load(open(COHORT_OVER_JSON))
+    out, err = f"{d}/over.vcf", io.StringIO()
+    kernels.reset_launches()
+    with watchdog(POOL_WATCHDOG_S), contextlib.redirect_stderr(err):
+        rc = cli.main(over_args(d, out) + ["--dtype", "float64", "--device",
+                                           device_name, "--host-workers",
+                                           "1"])
+    got = run_outcome(err.getvalue(), out)
+    log(f"cohort over (250 samples): exit {rc}, {got['summary']}, errors "
+        f"{got['errors']}, {got['records']} records, launches "
+        f"{dict(kernels.LAUNCHES)}")
+    if rc != 0 or {k: got[k] for k in ("summary", "errors", "records")} != \
+            {k: want[k] for k in ("summary", "errors", "records")} or \
+            not got["header_lines"]:
+        raise AssertionError(f"cohort over: exit {rc}, {got}, the JAX CLI "
+                             f"{want}")
+    check_no_jax()
+    return dict(got, rc=rc)
+
+
+def phase_cohort(tmp, device, device_name="cuda"):
+    """7f: the default path at cohort width (utils.simdata's COHORT_*
+    sets: stutter-rich reads, a phased SNP, no stutter model).  (i)
+    COHORT_ANCHOR (6 loci, periods 1-6, 100 samples x 20 reads) in float64
+    batched in-process (device EM, fused posteriors; K1 + K2), pooled and
+    sequential (host EM; K1 + K3) byte-identical to
+    tests/data/torch_port_cohort_f64.vcf with its models file, float32
+    batched within the drift bands, and the fused posteriors' per-sample
+    sums against the host's order (SumAudit); (ii) COHORT_WIDE (2 loci,
+    160 samples x 12 reads) float64 batched and sequential against
+    tests/data/torch_port_cohort160_f64.vcf; (iii) COHORT_OVER (250
+    samples) fails both loci at packing as the JAX CLI does
+    (cohort_over); (iv) the card's float64 em_train_batch against the
+    host EM on both anchor sets' EM problems; (v) COHORT_FULL (12 loci,
+    100 x 20) in float32 in-process and with the default pool: every
+    locus settled, loci/s, host and device-wait s, peak device memory,
+    buckets, the haplotype-count histogram, unfused dispatches, launches
+    per dispatch; then K1 and K2 at their most frequent launch shape
+    there against their plain versions, timed beside the bound.  Every
+    check of (i)-(iv) runs before a failure is raised."""
+    import torch
+    from hipstr_tpu_torch.bench import peak_device_mib, reset_peak_device
+    from hipstr_tpu_torch.ops import hmm2, posteriors
+    from hipstr_tpu_torch.ops.emission import stutter_emissions
+    from hipstr_tpu_torch.ops.stutter_emission import stutter_emissions_plain
+    from hipstr_tpu_torch.utils.simdata import (COHORT_ANCHOR, COHORT_FULL,
+                                                COHORT_OVER, COHORT_WIDE,
+                                                stutter_rich_loci,
+                                                write_stutter_rich)
+    t0 = time.perf_counter()
+    sets = dict(anchor=COHORT_ANCHOR, wide=COHORT_WIDE, over=COHORT_OVER,
+                full=COHORT_FULL)
+    for name, spec in sets.items():
+        write_stutter_rich(f"{tmp}/{name}", stutter_rich_loci(**spec))
+    log(f"cohort datasets written in {time.perf_counter() - t0:.2f} s")
+    anchor, wide = f"{tmp}/anchor", f"{tmp}/wide"
+    with SumAudit() as audit:
+        out, faults = hold_anchor_runs("cohort", anchor, ANCHOR_RUNS,
+                                       COHORT_VCF, COHORT_MODELS, device_name)
+    out["sum_audit"] = audit.stats
+    log(f"cohort fused posteriors' per-sample sums against the host's "
+        f"order: {audit.stats}")
+    if not audit.stats or any(st["differ"] for st in audit.stats.values()):
+        faults.append(f"fused posteriors' per-sample sums not the host's "
+                      f"order bit for bit: {audit.stats}")
+    res, more = hold_anchor_runs(
+        "cohort160", wide, [r for r in ANCHOR_RUNS if r[0] in (
+            "f64 batched", "f64 sequential")], COHORT160_VCF,
+        COHORT160_MODELS, device_name)
+    out.update(res)
+    faults += more
+    try:
+        out["over"] = cohort_over(f"{tmp}/over", device_name)
+    except AssertionError as exc:
+        log(f"FAULT {exc}")
+        faults.append(str(exc))
+    for label, d, spec in (("cohort", anchor, COHORT_ANCHOR),
+                           ("cohort160", wide, COHORT_WIDE)):
+        try:
+            out[f"em_train {label}"] = phase_em_train(
+                em_problems(d, spec["n_loci"], f"{d}/snps.vcf.gz"), device,
+                label)
+        except AssertionError as exc:
+            log(f"FAULT {exc}")
+            faults.append(str(exc))
+    if faults:
+        raise AssertionError(f"phase 7f: {len(faults)} faults: {faults}")
+
+    full, n_full = f"{tmp}/full", COHORT_FULL["n_loci"]
+    k1 = LeaderCapture(hmm2, "stutter_emissions", shape_emission)
+    k2 = LeaderCapture(hmm2, "segment_kernel", shape_segment)
+    ks = LeaderCapture(posteriors, "sample_sum_kernel", shape_sample_sum)
+    reset_peak_device(device)
+    with k1, k2, ks, DispatchLog() as dl:
+        _, vcf_a, _, a = stutter_rich_run(
+            "cohort full f32 in-process", full, "float32",
+            ["--host-workers", "1"], n_full, device_name)
+    a["peak_device_mib"] = peak_device_mib(device)
+    if len(dl.rows) != a["dispatches"]:
+        raise AssertionError(f"{len(dl.rows)} dispatches logged, the run "
+                             f"counted {a['dispatches']}")
+    buckets = Counter(tuple(sorted(b.items())) for *_, b in dl.rows)
+    a.update(hap_hist=dict(sorted(Counter(
+                 h for _, _, _, hs, _ in dl.rows for h in hs).items())),
+             unfused_dispatches=sum(1 for r in dl.rows if not r[2]),
+             buckets=[dict(b, dispatches=n)
+                      for b, n in buckets.most_common()],
+             launches_per_dispatch={k: v / a["dispatches"] for k, v in
+                                    a["launches"].items()})
+    log(f"cohort full f32 in-process: peak device memory "
+        f"{a['peak_device_mib']} MiB, haplotypes per locus-dispatch "
+        f"{a['hap_hist']}, {a['unfused_dispatches']} of {a['dispatches']} "
+        f"dispatches not fused (H_pad > 32), launches per dispatch "
+        f"{a['launches_per_dispatch']}")
+    for b in a["buckets"]:
+        log(f"cohort full buckets: {b}")
+    log_shapes("cohort full", {"emission": k1.counts, "segment": k2.counts,
+                               "sample_sum": ks.counts})
+    reset_peak_device(device)
+    _, vcf_b, _, b = stutter_rich_run(
+        "cohort full f32 pooled", full, "float32", [], n_full, device_name)
+    b["peak_device_mib"] = peak_device_mib(device)
+    b["records_equal_in_process"] = sum(
+        x == y for x, y in zip(vcf_body(vcf_b), vcf_body(vcf_a)))
+    hold_bodies("cohort full f32 pooled vs in-process", vcf_body(vcf_b),
+                vcf_body(vcf_a), show=False)
+    log(f"cohort full f32 pooled: peak device memory "
+        f"{b['peak_device_mib']} MiB")
+    out.update(full_in_process=a, full_pooled=b)
+
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=device)
+    real = {}
+    for name, cap, kernel, plain, bound_fn in (
+            ("emission", k1, stutter_emissions, stutter_emissions_plain,
+             bound_emission),
+            ("segment", k2, hmm2.segment_kernel, hmm2.segment_forward_plain,
+             bound_segment),
+            ("sample_sum", ks, posteriors.sample_sum_kernel,
+             posteriors.sample_sums_plain, bound_sample_sum)):
+        args, kwargs = cap.args[cap.leader]
+        real[name] = time_real(name, kernel, plain, bound_fn,
+                               tree_map(lambda t: t.to(device), args), kwargs,
+                               cap.leader, cap.counts[cap.leader], flush)
+    del flush
+    out["real"] = real
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"phase 7f (cohort width) took {out['phase_s']:.1f} s")
     check_no_jax()
     return out
 
@@ -1925,6 +2264,43 @@ def bound_segment_scan(args, kwargs, dtype_name):
     return bound(ops, nbytes, lanes * (2 * 13 + 1), dtype_name)
 
 
+def bound_sample_sum(args, kwargs, dtype_name):
+    """The ordered sum reads each cell of the reads it sums once, the
+    indices once, and writes the sums: one add per cell summed."""
+    contrib, order, start, count = args
+    G, R, C = contrib.shape
+    Sm = start.shape[1]
+    sz = contrib.element_size()
+    summed = int(count.sum())
+    nbytes = summed * C * sz + (G * R + 2 * G * Sm) * 4 + G * Sm * C * sz
+    return bound(summed * C, nbytes, 0, dtype_name)
+
+
+def library_sample_sum(args, flush) -> float:
+    """ms of one index_add_ (PyTorch's scatter-add, atomics in no fixed
+    order) computing the same sums on the same inputs, L2 flushed."""
+    import torch
+    contrib, order, start, count = args
+    G, R, C = contrib.shape
+    Sm = start.shape[1]
+    slot = torch.full((G, R), G * Sm, dtype=torch.int64)
+    o, st, n = order.cpu().long(), start.cpu().long(), count.cpu().long()
+    for g in range(G):
+        for s in range(Sm):
+            a = int(st[g, s])
+            slot[g, o[g, a:a + int(n[g, s])]] = g * Sm + s
+    slot = slot.reshape(-1).to(contrib.device)
+    flat = contrib.reshape(G * R, C)
+    out = torch.zeros((G * Sm + 1, C), dtype=contrib.dtype,
+                      device=contrib.device)
+    return event_ms(lambda: out.index_add_(0, slot, flat), REAL_REPS, flush)
+
+
+def shape_sample_sum(contrib, order, start, count):
+    G, R, C = contrib.shape
+    return (G, R, start.shape[1], C)
+
+
 class Capture:
     """While active, calls to `module.attr` (a kernel wrapper) go through,
     and the arguments of the first call of each wanted shape (any shape
@@ -2060,10 +2436,12 @@ def time_real(name, kernel, plain, bound_fn, args, kwargs, shape, count,
 
 def phase_real_shapes(tmp, device, slice_shapes, seq_shapes, loci):
     """Each kernel at its path's two most frequent launch shapes, on the
-    arguments that path passed (captured in a second run of it)."""
+    arguments that path passed (captured in a second run of it); the
+    ordered sum also beside one index_add_ on its inputs."""
     import torch
     from hipstr_tpu_torch import cli, kernels
-    from hipstr_tpu_torch.ops import hmm2, hmm_scan
+    from hipstr_tpu_torch.device import resolve_dtype
+    from hipstr_tpu_torch.ops import hmm2, hmm_scan, posteriors
     from hipstr_tpu_torch.ops.emission import stutter_emissions
     from hipstr_tpu_torch.ops.stutter_emission import stutter_emissions_plain
     from hipstr_tpu_torch.pipeline.hap_aligner import \
@@ -2076,7 +2454,9 @@ def phase_real_shapes(tmp, device, slice_shapes, seq_shapes, loci):
                  top(slice_shapes["emission"]))
     k2 = Capture(hmm2, "segment_kernel", shape_segment,
                  top(slice_shapes["segment"]))
-    with k1, k2:
+    ks = Capture(posteriors, "sample_sum_kernel", shape_sample_sum,
+                 top(slice_shapes["sample_sum"]))
+    with k1, k2, ks:
         cli.run(base + ["--batch-loci", "32", "--host-workers", "1",
                         "--str-vcf", f"{tmp}/cap.vcf"])
     k3 = Capture(hmm_scan, "segment_scan_kernel", shape_segment_scan,
@@ -2096,7 +2476,8 @@ def phase_real_shapes(tmp, device, slice_shapes, seq_shapes, loci):
     hists = dict(emission=slice_shapes["emission"],
                  segment=slice_shapes["segment"],
                  flank_scan=k4_shapes,
-                 segment_scan=seq_shapes["segment_scan"])
+                 segment_scan=seq_shapes["segment_scan"],
+                 sample_sum=slice_shapes["sample_sum"])
     table = {
         "emission": (k1, stutter_emissions, stutter_emissions_plain,
                      bound_emission),
@@ -2106,6 +2487,8 @@ def phase_real_shapes(tmp, device, slice_shapes, seq_shapes, loci):
                        hmm_scan.flank_scan_plain, bound_flank_scan),
         "segment_scan": (k3, hmm_scan.segment_scan_kernel,
                          hmm_scan.segment_scan_plain, bound_segment_scan),
+        "sample_sum": (ks, posteriors.sample_sum_kernel,
+                       posteriors.sample_sums_plain, bound_sample_sum),
     }
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=device)
     results, held = {}, {}
@@ -2115,9 +2498,13 @@ def phase_real_shapes(tmp, device, slice_shapes, seq_shapes, loci):
             if shape not in cap.args:
                 raise AssertionError(f"{name}: shape {shape} not captured")
             args, kwargs = cap.args[shape]
-            results[name] += time_real(name, kernel, plain, bound_fn, args,
-                                       kwargs, shape, hists[name][shape],
-                                       flush)
+            rows = time_real(name, kernel, plain, bound_fn, args, kwargs,
+                             shape, hists[name][shape], flush)
+            if name == "sample_sum":
+                for row in rows:
+                    row["library_ms"] = library_sample_sum(
+                        as_dtype(args, resolve_dtype(row["dtype"])), flush)
+            results[name] += rows
             held.setdefault(name, []).append(
                 (kernel, plain, shape,
                  tree_map(lambda t: t.to("cpu"), args), kwargs))
@@ -2190,8 +2577,7 @@ def bench_fresh_process() -> dict:
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     n, launches = res["card_shards"], res["launches"]
     if (res["success"], res["fail"]) != (res["n_loci"], 0) or not n \
-            or launches != dict(emission=2 * n, segment=2 * n,
-                                flank_scan=0, segment_scan=0) \
+            or not batched_launches(launches, n) \
             or res["device"]["cards"] != torch.cuda.device_count():
         raise AssertionError(f"bench in a fresh process: {res}")
     log(f"bench in a fresh process: {res['value']:.3f} loci/s on "
@@ -2636,7 +3022,8 @@ def check_mode_launches(label, launches, batched, genotyped) -> None:
     genotyped, and no other kernel."""
     used, unused = (("emission", "segment"), ("flank_scan", "segment_scan")) \
         if batched else (("emission", "segment_scan"), ("segment",
-                                                        "flank_scan"))
+                                                        "flank_scan",
+                                                        "sample_sum"))
     if any(launches[k] for k in unused) or (
             genotyped and not all(launches[k] for k in used)):
         raise AssertionError(f"{label}: launches {launches}")
@@ -2921,8 +3308,7 @@ def sharded_run(label, argv, devices):
         f"{n} card-shards, launches {launches}, wall {wall:.3f} s")
     if counters.genotype_fail or not counters.genotype_success:
         raise AssertionError(f"shards {label}: not every locus genotyped")
-    if launches != dict(emission=2 * n, segment=2 * n, flank_scan=0,
-                        segment_scan=0):
+    if not batched_launches(launches, n):
         raise AssertionError(f"shards {label}: launches {launches} for {n} "
                              "card-shards")
     if rs["cards"] != len(cards) or rs["shards_per_dispatch"] != len(
@@ -3109,6 +3495,7 @@ def main() -> int:
         os.makedirs(f"{tmp}/ref_em")
         phase_em_reference(f"{tmp}/ref_em")
         stutter_rich = phase_stutter_rich(f"{tmp}/stutter_rich", device)
+        cohort = phase_cohort(f"{tmp}/cohort_width", device)
         phase_reference(f"{tmp}/ref")
         t0 = time.perf_counter()
         periods = phase_periods(f"{tmp}/periods")
@@ -3154,7 +3541,7 @@ def main() -> int:
             f"{time.perf_counter() - t0:.1f} s")
     log(json.dumps({"slice": slice_stats, "sequential": seq_stats,
                     "modes": mode_stats, "em": em_stats, "periods": periods,
-                    "stutter_rich": stutter_rich,
+                    "stutter_rich": stutter_rich, "cohort": cohort,
                     "golden": golden,
                     "denovo": denovo, "scale": scale, "card": card,
                     "measuring": measuring, "shards": shards,
@@ -3173,7 +3560,7 @@ def main() -> int:
             ms=r["ms"], ms_warm=r["ms_warm"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             share=r["share"], exp_log=r["exp_log"], shape=r["shape"],
-            library_ms=None, main_shape_ms=main32[name][1],
+            library_ms=r.get("library_ms"), main_shape_ms=main32[name][1],
             main_shape_bound_ms=main32[name][3]))
         if name in stutter_rich["real"]:  # 7e: the full-width set, f32
             s = stutter_rich["real"][name][0]
@@ -3185,6 +3572,14 @@ def main() -> int:
                 stutter_rich_bound_ms=s["bound_ms"],
                 stutter_rich_bound_by=s["bound_by"],
                 stutter_rich_max_abs_err=s["max_abs_err"])
+        if name in cohort["real"]:   # 7f: the cohort set, f32
+            s = cohort["real"][name][0]
+            summary["kernels"][-1].update(
+                cohort_launches=cohort["full_in_process"]["launches"][name],
+                cohort_shape=s["shape"], cohort_ms=s["ms"],
+                cohort_plain_ms=s["plain_ms"], cohort_bound_ms=s["bound_ms"],
+                cohort_bound_by=s["bound_by"],
+                cohort_max_abs_err=s["max_abs_err"])
         if name in soak_real:        # phase 13c: the soak's shape, f32
             s = soak_real[name][0]
             summary["kernels"][-1].update(

@@ -11,7 +11,8 @@ A missing nvcc or a failed build raises; nothing falls back.
 `LAUNCHES` counts kernel launches by name, and `SHAPES` holds beside it
 the histogram of each kernel's launch shapes: (G, O, P, L, Bmax) for
 emission (K1), (G, H, P, L, R, O) for segment (K2), (P, H, L, n_rows) for
-flank_scan (K4) and (P, H, L, R, O) for segment_scan (K3).  Only the
+flank_scan (K4), (P, H, L, R, O) for segment_scan (K3) and (G, R, Sm, C)
+for sample_sum (the fused posteriors' ordered per-sample sum).  Only the
 wrappers that launch a kernel add to them, right after the launch.
 `launch` runs a kernel on the card its tensors lie on, which need not be
 the runtime's current device: one process may dispatch to several cards
@@ -52,7 +53,7 @@ MAX_LANES = 512
 WARP_LANES = (64, 128, 192, 256, 384, 512)
 
 LAUNCHES: Dict[str, int] = {"emission": 0, "segment": 0, "flank_scan": 0,
-                            "segment_scan": 0}
+                            "segment_scan": 0, "sample_sum": 0}
 SHAPES: Dict[str, Counter] = {k: Counter() for k in LAUNCHES}
 # name -> {"seconds": build time, "ptxas": compiler resource report}
 BUILD_INFO: Dict[str, dict] = {}
@@ -66,6 +67,7 @@ SIGNATURES = {
     "segment": [_P] * 16 + [_I] * 10 + [_P],
     "flank_scan": [_P] * 18 + [_I] * 8 + [_P],
     "segment_scan": [_P] * 16 + [_I] * 9 + [_P],
+    "sample_sum": [_P] * 5 + [_I] * 4 + [_P],
 }
 
 

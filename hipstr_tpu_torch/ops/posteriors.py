@@ -5,9 +5,10 @@ host (numpy, float64) posteriors and genotype extraction.
 hipstr_tpu/ops/posteriors.py::batched_pool_posteriors (an XLA op in the
 JAX package, not a Pallas kernel; reference src/genotyper.cpp:44-80 plus
 the mate-pair LL summing of seq_stutter_genotyper.cpp:530-564).  The
-per-sample sum is a contraction with a one-hot [G, R, Sm] sample matrix in
-the working dtype (TF32 is off, device.py), so the result does not depend
-on the order atomics land in: the VCF is the same from run to run.
+per-sample sum (`sample_sums`) adds each sample's reads in order, as the
+host posteriors' np.add.at does, in the port's own kernel
+csrc/sample_sum.cu on the card (no atomics: the VCF is the same from run
+to run, and float64 equals the host's bit for bit).
 
 `log_genotype_priors`, `read_genotype_lls`, `sample_posteriors` and
 `extract_genotypes` are copies of the numpy functions of
@@ -18,11 +19,14 @@ branches: `xp` is numpy.
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from .. import kernels
 
 NEG = -1.0e30
 LOG_ONE_HALF = math.log(0.5)
@@ -76,9 +80,8 @@ def batched_pool_posteriors(LL, pm: dict, Sm: int, dtype):
     lse = m + torch.log1p(torch.exp(torch.minimum(a, b) - m))   # [G,R,H,H]
     contrib = w[:, :, None, None] * lse
 
-    onehot = torch.nn.functional.one_hot(pm["sample"].long(), Sm).to(dtype)
-    sums = torch.bmm(onehot.transpose(1, 2),
-                     contrib.reshape(G, R, H * H)).reshape(G, Sm, H, H)
+    sums = sample_sums(contrib.reshape(G, R, H * H), pm["sample"], w,
+                       Sm).reshape(G, Sm, H, H)
     unnorm = priors[:, None] + sums
     unnorm = torch.where(gmask[:, None], unnorm, NEG)
     flat = unnorm.reshape(G, Sm, H * H)
@@ -86,6 +89,72 @@ def batched_pool_posteriors(LL, pm: dict, Sm: int, dtype):
     totals = mx + torch.log(torch.sum(torch.exp(flat - mx[:, :, None]), dim=2))
     log_post = unnorm - totals[:, :, None, None]
     return log_post, totals
+
+
+def sample_sums(contrib, sample, weights, Sm: int):
+    """[G, Sm, C]: each locus's per-read cells contrib [G, R, C] summed
+    over the reads of each sample (sample, weights [G, R]), each sample's
+    reads added in order from 0, as the host posteriors' np.add.at adds
+    them.  A read of weight 0 (the padding's) adds an exact zero and is
+    skipped.  On a CUDA tensor the kernel csrc/sample_sum.cu runs
+    (sample_sum_kernel) or the call raises; a CPU tensor takes
+    sample_sums_plain."""
+    runs = sample_runs(sample, weights, Sm)
+    if contrib.device.type == "cpu":
+        return sample_sums_plain(contrib, *runs)
+    if contrib.device.type == "cuda":
+        return sample_sum_kernel(contrib, *runs)
+    raise ValueError(f"sample_sums: unsupported device {contrib.device}")
+
+
+def sample_runs(sample, weights, Sm: int):
+    """(order [G, R], start [G, Sm], count [G, Sm]), int32: each locus's
+    read indices stably sorted by sample, and where each sample's run
+    starts in that order and how many reads it holds.  Reads of weight 0
+    sort past the last sample and belong to no run."""
+    G, R = sample.shape
+    key = torch.where(weights != 0, sample.long(), Sm)
+    order = torch.sort(key, dim=1, stable=True).indices
+    slot = key + (Sm + 1) * torch.arange(G, device=key.device)[:, None]
+    count = torch.bincount(slot.reshape(-1), minlength=G * (Sm + 1)).reshape(
+        G, Sm + 1)[:, :Sm]
+    start = torch.cumsum(count, 1) - count
+    return order.int(), start.int(), count.int()
+
+
+def sample_sums_plain(contrib, order, start, count):
+    """The plain PyTorch version of csrc/sample_sum.cu: pass k adds the
+    k-th read of every sample's run to that sample's sums."""
+    G, R, C = contrib.shape
+    Sm = start.shape[1]
+    out = torch.zeros((G, Sm, C), dtype=contrib.dtype, device=contrib.device)
+    order, start, count = order.long(), start.long(), count.long()
+    for k in range(int(count.max()) if count.numel() else 0):
+        rows = torch.gather(order, 1, torch.clamp(start + k, max=R - 1))
+        vals = torch.gather(contrib, 1, rows[:, :, None].expand(G, Sm, C))
+        out = torch.where((k < count)[:, :, None], out + vals, out)
+    return out
+
+
+def sample_sum_kernel(contrib, order, start, count):
+    """Launch csrc/sample_sum.cu on CUDA tensors: [G, Sm, C]."""
+    G, R, C = contrib.shape
+    Sm = start.shape[1]
+    dev, dtype = contrib.device, contrib.dtype
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"sample_sums: dtype {dtype}")
+    for name, t, dt, shape in (("contrib", contrib, dtype, (G, R, C)),
+                               ("order", order, torch.int32, (G, R)),
+                               ("start", start, torch.int32, (G, Sm)),
+                               ("count", count, torch.int32, (G, Sm))):
+        kernels.check_cuda_tensor(name, t, dt, shape, dev)
+    out = torch.empty((G, Sm, C), dtype=dtype, device=dev)
+    kernels.launch("sample_sum", dtype, dev, (G, R, Sm, C),
+                   kernels.ptr(contrib), kernels.ptr(order),
+                   kernels.ptr(start), kernels.ptr(count), kernels.ptr(out),
+                   ctypes.c_int(G), ctypes.c_int(R), ctypes.c_int(Sm),
+                   ctypes.c_int(C))
+    return out
 
 
 def log_genotype_priors(xp, num_alleles, haploid: bool, dtype=np.float64):

@@ -209,6 +209,20 @@ STUTTER_RICH_ANCHOR = dict(n_loci=12, reads_per_sample=50, read_len=100,
                            base_seed=52000, chrom_prefix="chrU")
 STUTTER_RICH_FULL = dict(n_loci=60, reads_per_sample=170, read_len=150,
                          base_seed=53000, chrom_prefix="chrW")
+# cohort width, as a joint call sees it: 100 samples x 20 reads (about a
+# 30x genome over a 100-bp window) and 160 x 12 (about 15x).  The anchor
+# sets (tests/data/torch_port_cohort_f64.vcf, torch_port_cohort160_f64.vcf,
+# and their models files), the set whose pools overflow the largest P
+# bucket (1024) at both loci, and the full-width set (float32, on the
+# card; 12 loci, two a period, to keep chip_smoke.py's whole run near its
+# earlier length)
+COHORT_ANCHOR = dict(n_loci=6, n_samples=100, reads_per_sample=20,
+                     read_len=100, base_seed=54000, chrom_prefix="chrK")
+COHORT_WIDE = dict(n_loci=2, n_samples=160, reads_per_sample=12,
+                   read_len=100, base_seed=55000, chrom_prefix="chrQ")
+COHORT_OVER = dict(COHORT_WIDE, n_samples=250)
+COHORT_FULL = dict(n_loci=12, n_samples=100, reads_per_sample=20,
+                   read_len=100, base_seed=56000, chrom_prefix="chrJ")
 # the genotyper's options on them: no stutter model, so each locus learns
 # one from its reads' CIGARs
 STUTTER_RICH_ARGS = ["--min-reads", "15", "--use-unpaired"]

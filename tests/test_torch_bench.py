@@ -100,7 +100,7 @@ def test_bench_prints_one_json_line():
     assert res["dispatches"] >= 2 * 2 + 2
     assert res["card_shards"] == res["dispatches"]      # one device
     assert res["launches"] == dict(emission=0, segment=0, flank_scan=0,
-                                   segment_scan=0)
+                                   segment_scan=0, sample_sum=0)
 
 
 def test_bench_run_f64_matches_the_reference_prefix(tmp_path):
