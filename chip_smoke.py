@@ -101,11 +101,11 @@ Phases (any failure raises and exits non-zero):
      without a stutter model, float64 batched (device EM and fused
      posteriors, K1 + K2) and sequential (host EM, K1 + K3) byte-identical
      to tests/data/torch_port_periods_f64.vcf (records that differ logged
-     first), float32 batched within the drift bands; the stutter-free
-     locus of utils.simdata.em_tie_loci float64 batched byte-identical to
-     tests/data/torch_port_em_tie_f64.vcf; each run's launches counted
-     from 0; the fused posteriors on the card at prior ratios (A = 2-5,
-     diploid and haploid) printing every field as the host posteriors do;
+     first; its stutter-free locus chrP8b prints a {x:.2f} tie of its
+     learned model), float32 batched within the drift bands; each run's
+     launches counted from 0; the fused posteriors on the card at prior
+     ratios (A = 2-5, diploid and haploid) printing every field as the
+     host posteriors do;
   9. real shapes: each kernel at the two launch shapes its path used most
      (K1, K2 and sample_sum from phase 4's histogram, K3 from phase 5's,
      K4 from the flank mode over the slice's loci; sample_sum also beside
@@ -162,7 +162,20 @@ Phases (any failure raises and exits non-zero):
      run's first 2 records equal to it in genotypes and integer fields;
      (c) K1 and K2 on the soak's arguments at their most frequent launch
      shape (captured during (b)), float32 and float64, against the plain
-     versions, timed beside the bound;
+     versions, timed beside the bound; (d) the user's default run on the
+     soak's wide rounds (phase_soak_wide): the soak's first 4 loci
+     (utils.simdata.SOAK_WIDE, from (b)'s dataset: periods 1-4, a phased
+     SNP each, first rounds of 60-80 haplotypes at H_pad 64 and 128, their
+     posteriors computed on the host) without a stutter model and with the
+     default one, f64 batched, pooled and sequential byte-identical to
+     tests/data/torch_port_soak_em_f64.vcf (with its models file) and
+     torch_port_soak4_f64.vcf, f32 batched within the bands; every f64
+     batched run's first rounds unfused at H_pad 64 and 128 and sample_sum
+     launched once per fused dispatch only; the pooled runs' workers
+     computing the posteriors of every unfused locus-round; the card's
+     f64 EM within rel 1e-14 of the host EM on the four loci; K2 at its
+     most frequent H_pad-128 launch and K3 at its most frequent launch
+     there against their plain versions, timed beside the bound;
  14. the batched dispatch sharded over several devices (the JAX CLI's
      locus mesh): with `cli.run(..., devices=[card 0] * 2)` the slice in
      float32 (its VCF equal to phase 4's one-shard run) and the `default`
@@ -181,7 +194,8 @@ their numbers stay comparable whatever the machine's core count.  After
 every phase no module of JAX or of the JAX package may be loaded.
 Prints the kernel summary as one JSON line (per kernel its real-shape
 time, bound and share of the bound; K1 and K2 also at phase 7e's, 7f's
-and 13c's shapes, sample_sum at 7f's), then as the last line {"ok": true,
+and 13c's shapes, sample_sum at 7f's, K2 and K3 at 13d's), then as the
+last line {"ok": true,
 "device": {...}}.  Needs one visible CUDA card.
 
     python3 chip_smoke.py --cross-card
@@ -207,7 +221,6 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 REF_VCF = os.path.join(ROOT, "tests", "data", "torch_port_ref_f64.vcf")
 REF_EM_VCF = os.path.join(ROOT, "tests", "data", "torch_port_ref_em_f64.vcf")
 PERIODS_VCF = os.path.join(ROOT, "tests", "data", "torch_port_periods_f64.vcf")
-EM_TIE_VCF = os.path.join(ROOT, "tests", "data", "torch_port_em_tie_f64.vcf")
 STUTTER_RICH_VCF = os.path.join(ROOT, "tests", "data",
                                 "torch_port_stutter_rich_f64.vcf")
 STUTTER_RICH_MODELS = os.path.join(ROOT, "tests", "data",
@@ -275,6 +288,14 @@ SOAK_WINDOW_S = 5.0      # seconds per throughput window
 SOAK_FLAT_FROM = 500     # memory is held flat from this locus on
 SOAK_FLAT = 1.2          # ... within this factor of the first full band
 SOAK_VCF = os.path.join(ROOT, "tests", "data", "torch_port_soak_f64.vcf")
+# 13d: the soak's 4-locus prefix without a stutter model and with the
+# default one (utils.simdata.SOAK_WIDE)
+SOAK_EM_VCF = os.path.join(ROOT, "tests", "data", "torch_port_soak_em_f64.vcf")
+SOAK_EM_MODELS = os.path.join(ROOT, "tests", "data",
+                              "torch_port_soak_em_models_f64.txt")
+SOAK4_VCF = os.path.join(ROOT, "tests", "data", "torch_port_soak4_f64.vcf")
+SOAK_WIDE_EM_REL = 1e-14     # 13d(iii): card f64 EM vs host EM, relative
+SOAK_WIDE_H = (64, 128)      # 13d(ii): H_pad of the unfused first rounds
 MODES_JSON = os.path.join(ROOT, "tests", "data", "torch_port_modes_f64.json")
 # kernel -> (source, the TPU kernel it replaces); each is checked in phase 3
 # and timed at its path's real launch shapes, beside its bound, in phase 9
@@ -1481,20 +1502,26 @@ def locus_buckets(arrays, statics) -> dict:
 class DispatchLog:
     """While active, records each batched dispatch (chunk) of the port's
     executor: (G, H_pad, fused posteriors, each locus's real haplotype
-    count, the dispatch's locus_buckets).  ops/posteriors fuses a dispatch
-    only when H_pad <= 32."""
+    count, the dispatch's locus_buckets), and each locus's rounds in
+    dispatch order in `locus_rounds`: (its BED index, real haplotype
+    count, fused posteriors, its locus_buckets).  ops/posteriors fuses a
+    dispatch only when H_pad <= 32."""
 
     def __enter__(self):
         from hipstr_tpu_torch.parallel import executor
         self.cls, self.rows = executor.BatchedAligner, []
+        self.locus_rounds = []
         self.orig = self.cls._dispatch_chunk
-        rows, orig = self.rows, self.orig
+        rows, loci, orig = self.rows, self.locus_rounds, self.orig
 
         def wrapper(aligner, chunk):
+            fused = chunk[0].statics[7] is not None
             rows.append((len(chunk), chunk[0].arrays[4].seed_char.shape[0],
-                         chunk[0].statics[7] is not None,
-                         [it.statics[6] for it in chunk],
+                         fused, [it.statics[6] for it in chunk],
                          locus_buckets(chunk[0].arrays, chunk[0].statics)))
+            loci.extend((it.order, it.statics[6], fused,
+                         locus_buckets(it.arrays, it.statics))
+                        for it in chunk)
             return orig(aligner, chunk)
 
         self.cls._dispatch_chunk = wrapper
@@ -1504,13 +1531,14 @@ class DispatchLog:
         self.cls._dispatch_chunk = self.orig
 
 
-def learn_run(label, argv, dtype, extra, n_loci, device_name="cuda"):
-    """One CLI run without a stutter model (`argv`: inputs, options and
-    outputs, without --dtype, --device or the mode's `extra` flags),
-    launches counted from 0: (pipeline, numbers).  Every locus settled
-    (success + em_fail), fail 0; a batched run learns in at least one
-    device EM wave; K1 + K2 (batched) or K1 + K3 (sequential) launched
-    and no other."""
+def learn_run(label, argv, dtype, extra, n_loci, device_name="cuda",
+              learns=True):
+    """One CLI run without a stutter model (with one when not `learns`;
+    `argv`: inputs, options and outputs, without --dtype, --device or the
+    mode's `extra` flags), launches counted from 0: (pipeline, numbers).
+    Every locus settled (success + em_fail), fail 0; a batched run that
+    learns does so in at least one device EM wave; K1 + K2 (batched) or
+    K1 + K3 (sequential) launched and no other."""
     import torch
     from hipstr_tpu_torch import cli, kernels
     torch.cuda.synchronize()
@@ -1532,14 +1560,20 @@ def learn_run(label, argv, dtype, extra, n_loci, device_name="cuda"):
                fail=counters.genotype_fail,
                em_device_s=t.get("Stutter estimation (device)", 0.0),
                worker_start_s=t.get("Worker start", 0.0),
+               adaptive_s=t.get("Genotyping (adaptive)", 0.0)
+               + t.get("Genotyping (adaptive) (workers)", 0.0),
                **{k: rs[k] for k in ("em_waves", "em_iter_hist",
                                      "dispatches", "card_shards",
                                      "round_hist", "spec_hits",
                                      "spec_misses") if k in rs})
+    if "workers" in rs:       # pooled: the rounds the workers posteriored
+        res["workers_host_posteriors"] = sum(
+            r["host_posteriors"] for r in rs["workers"])
     log(f"{label}: success={res['success']} em_fail={res['em_fail']} "
         f"fail={res['fail']} {res['loci_per_s']:.3f} loci/s, wall "
         f"{wall:.3f} s, host {res['host_s']:.3f} s, device wait "
-        f"{wait:.3f} s, EM (device) {res['em_device_s']:.3f} s in "
+        f"{wait:.3f} s, adaptive genotyping {res['adaptive_s']:.3f} s, EM "
+        f"(device) {res['em_device_s']:.3f} s in "
         f"{rs.get('em_waves', 0)} waves, iterations "
         f"{rs.get('em_iter_hist')}, dispatches {rs.get('dispatches')}, "
         f"device rounds per locus {rs.get('round_hist')}, speculative "
@@ -1547,23 +1581,33 @@ def learn_run(label, argv, dtype, extra, n_loci, device_name="cuda"):
         f"(realigned {rs.get('spec_misses')}), launches {launches}")
     if res["fail"] or res["success"] + res["em_fail"] != n_loci:
         raise AssertionError(f"{label}: not every locus settled")
-    if batched and not rs["em_waves"]:
+    if batched and learns and not rs["em_waves"]:
         raise AssertionError(f"{label}: no device EM wave")
     check_mode_launches(label, launches, batched, True)
     check_no_jax()
     return pipeline, res
 
 
+def anchor_run(label, out_dir, argv, dtype, extra, n_loci,
+               device_name="cuda", learns=True):
+    """learn_run of `argv(vcf)` (a command line writing the VCF `vcf`),
+    its VCF and --stutter-out file written into `out_dir`: (pipeline, VCF
+    path, models text, or None for a run with a stutter model (not
+    `learns`), numbers)."""
+    name = label.replace(" ", "_")
+    vcf, models = f"{out_dir}/{name}.vcf", f"{out_dir}/{name}_models.txt"
+    pipeline, res = learn_run(
+        label, argv(vcf) + (["--stutter-out", models] if learns else []),
+        dtype, extra, n_loci, device_name, learns)
+    return pipeline, vcf, open(models).read() if learns else None, res
+
+
 def stutter_rich_run(label, d, dtype, extra, n_loci, device_name="cuda"):
     """learn_run on the stutter-rich set in `d`: (pipeline, VCF path,
     models text, numbers)."""
     from hipstr_tpu_torch.utils.simdata import stutter_rich_args
-    name = label.replace(" ", "_")
-    vcf, models = f"{d}/{name}.vcf", f"{d}/{name}_models.txt"
-    pipeline, res = learn_run(
-        label, stutter_rich_args(d, vcf) + ["--stutter-out", models], dtype,
-        extra, n_loci, device_name)
-    return pipeline, vcf, open(models).read(), res
+    return anchor_run(label, d, lambda vcf: stutter_rich_args(d, vcf), dtype,
+                      extra, n_loci, device_name)
 
 
 # an anchor set's runs: (label, dtype, mode flags)
@@ -1574,28 +1618,34 @@ ANCHOR_RUNS = (("f64 batched", "float64", ["--host-workers", "1"]),
                ("f32 batched", "float32", ["--host-workers", "1"]))
 
 
-def hold_anchor_runs(tag, d, runs, ref_vcf, ref_models, device_name="cuda"):
-    """The stutter-rich set written in `d` through each of `runs`
-    (ANCHOR_RUNS' form), held to its JAX CLI anchor: float64 byte-identical
-    (records that differ logged first) with the anchor's models file (equal
-    text, or each differing parameter within rtol 1e-8: hold_models),
-    float32 within the drift bands.  Returns (numbers by label, faults);
-    every run is held before a fault is raised."""
-    want_models = open(ref_models).read()
+def hold_anchor_runs(tag, d, runs, ref_vcf, ref_models, device_name="cuda",
+                     argv=None):
+    """The stutter-rich set written in `d` (or the command line `argv(vcf)`,
+    its outputs written into `d`) through each of `runs` (ANCHOR_RUNS'
+    form), held to its JAX CLI anchor: float64 byte-identical (records
+    that differ logged first) with the anchor's models file (equal text,
+    or each differing parameter within rtol 1e-8: hold_models; none when
+    `ref_models` is None, a run with a stutter model), float32 within the
+    drift bands (genotypes and integer fields equal).  Returns (numbers by
+    label, faults); every run is held before a fault is raised."""
+    from hipstr_tpu_torch.utils.simdata import stutter_rich_args
+    argv = argv or (lambda vcf: stutter_rich_args(d, vcf))
+    learns = ref_models is not None
+    want_models = open(ref_models).read() if learns else None
     n_anchor = len(vcf_body(ref_vcf))
     faults, out = [], {}
     for run, dtype, extra in runs:
         label = f"{tag} {run}"
-        pipeline, vcf, models, res = stutter_rich_run(
-            label, d, dtype, extra, n_anchor, device_name)
+        pipeline, vcf, models, res = anchor_run(
+            label, d, argv, dtype, extra, n_anchor, device_name, learns)
         try:
             same = hold_to_reference(label, vcf, ref_vcf)
             res["byte_identical"] = same
-            if dtype == "float64":
-                if same != n_anchor:
-                    raise AssertionError(
-                        f"{label}: {n_anchor - same} records not "
-                        f"byte-identical to {os.path.relpath(ref_vcf, ROOT)}")
+            if dtype == "float64" and same != n_anchor:
+                raise AssertionError(
+                    f"{label}: {n_anchor - same} records not "
+                    f"byte-identical to {os.path.relpath(ref_vcf, ROOT)}")
+            if dtype == "float64" and learns:
                 res["models_equal_text"] = models == want_models
                 hold_models(label, models, want_models, pipeline._stutter_out)
                 log(f"{label}: models file "
@@ -1816,6 +1866,7 @@ def phase_cohort(tmp, device, device_name="cuda"):
     check of (i)-(iv) runs before a failure is raised."""
     import torch
     from hipstr_tpu_torch.bench import peak_device_mib, reset_peak_device
+    from hipstr_tpu_torch.device import resolve_dtype
     from hipstr_tpu_torch.ops import hmm2, posteriors
     from hipstr_tpu_torch.ops.emission import stutter_emissions
     from hipstr_tpu_torch.ops.stutter_emission import stutter_emissions_plain
@@ -1914,9 +1965,15 @@ def phase_cohort(tmp, device, device_name="cuda"):
             ("sample_sum", ks, posteriors.sample_sum_kernel,
              posteriors.sample_sums_plain, bound_sample_sum)):
         args, kwargs = cap.args[cap.leader]
-        real[name] = time_real(name, kernel, plain, bound_fn,
-                               tree_map(lambda t: t.to(device), args), kwargs,
+        args = tree_map(lambda t: t.to(device), args)
+        real[name] = time_real(name, kernel, plain, bound_fn, args, kwargs,
                                cap.leader, cap.counts[cap.leader], flush)
+        if name == "sample_sum":
+            for row in real[name]:
+                row["library_ms"] = library_sample_sum(
+                    as_dtype(args, resolve_dtype(row["dtype"])), flush)
+                log(f"real sample_sum {cap.leader} {row['dtype']}: "
+                    f"index_add_ {row['library_ms']:.4f} ms (L2 flushed)")
     del flush
     out["real"] = real
     out["phase_s"] = time.perf_counter() - t0
@@ -2114,25 +2171,19 @@ def phase_periods(tmp, device_name="cuda"):
     """Repeat periods 5-9 (utils.simdata.period_loci, written in `tmp`)
     through the CLI without a stutter model: float64 batched (device EM,
     fused posteriors; K1 + K2) and sequential (host EM; K1 + K3)
-    byte-identical to
-    tests/data/torch_port_periods_f64.vcf, float32 batched within the
-    drift bands; the stutter-free locus of utils.simdata.em_tie_loci
-    float64 batched byte-identical to tests/data/torch_port_em_tie_f64.vcf;
+    byte-identical to tests/data/torch_port_periods_f64.vcf (its
+    stutter-free locus chrP8b prints a {x:.2f} tie of its learned model,
+    1/40, as the host EM does), float32 batched within the drift bands;
     the fused posteriors on the card at prior ratios (A = 2-5, diploid and
     haploid) printing every field as the host's.  Each run's launches
     counted from 0."""
     from hipstr_tpu_torch.device import resolve_device
-    from hipstr_tpu_torch.utils.simdata import (LEARN_ARGS, em_tie_loci,
-                                                write_sim)
-    os.makedirs(f"{tmp}/tie", exist_ok=True)
-    write_sim(f"{tmp}/tie", em_tie_loci())
+    from hipstr_tpu_torch.utils.simdata import LEARN_ARGS
     runs = (("periods f64 batched", tmp, PERIODS_VCF, "float64",
              ["--host-workers", "1"]),
             ("periods f64 sequential", tmp, PERIODS_VCF, "float64",
              ["--batch-loci", "0"]),
             ("periods f32 batched", tmp, PERIODS_VCF, "float32",
-             ["--host-workers", "1"]),
-            ("EM tie f64 batched", f"{tmp}/tie", EM_TIE_VCF, "float64",
              ["--host-workers", "1"]))
     out = {}
     for label, d, ref, dtype, extra in runs:
@@ -2590,18 +2641,22 @@ def bench_fresh_process() -> dict:
 class LeaderCapture(Capture):
     """While active, keeps on the host the arguments of the kernel's most
     frequent launch shape so far (taken when that shape takes the lead),
-    so at the end those of the run's most frequent shape, in one pass."""
+    so at the end those of the run's most frequent shape, in one pass;
+    with `keep`, among the shapes it keeps only."""
 
-    def __init__(self, module, attr, shape_of):
+    def __init__(self, module, attr, shape_of, keep=None):
         super().__init__(module, attr, shape_of)
         self.counts = Counter()
         self.leader = None
+        self.keep = keep
 
     def __enter__(self):
         self.orig = getattr(self.module, self.attr)
 
         def wrapper(*args, **kwargs):
             s = self.shape_of(*args)
+            if self.keep is not None and not self.keep(s):
+                return self.orig(*args, **kwargs)
             self.counts[s] += 1
             if self.leader is None or (
                     s != self.leader
@@ -2681,10 +2736,20 @@ def phase_soak(tmp, device):
     kernels.reset_launches()
     k1 = LeaderCapture(hmm2, "stutter_emissions", shape_emission)
     k2 = LeaderCapture(hmm2, "segment_kernel", shape_segment)
-    with k1, k2:
+    with k1, k2, DispatchLog() as dl:
         res = soak.run(tmp, device, window_s=SOAK_WINDOW_S, band=SOAK_BAND,
                        log=log)
     launches = dict(kernels.LAUNCHES)
+    unfused = [r for r in dl.rows if not r[2]]
+    res.update(unfused_dispatches=len(unfused),
+               unfused_locus_rounds=sum(r[0] for r in unfused),
+               locus_rounds=len(dl.locus_rounds),
+               h_pad_hist=dict(sorted(Counter(r[1] for r in dl.rows)
+                                      .items())))
+    log(f"soak: {len(unfused)} of {len(dl.rows)} dispatches not fused "
+        f"(H_pad > 32), {res['unfused_locus_rounds']} of "
+        f"{len(dl.locus_rounds)} locus-rounds; H_pad per dispatch "
+        f"{res['h_pad_hist']}")
     shapes = {k: kernels.SHAPES[k].copy() for k in ("emission", "segment")}
     log_shapes("soak", shapes)
     log(soak.band_table(res["bands"]))
@@ -2764,6 +2829,172 @@ def phase_soak_kernels(device, captures):
     del flush
     check_no_jax()
     return results
+
+
+def soak_wide_dataset(tmp, soak_dir=None):
+    """13d's dataset: the soak's first SOAK_WIDE loci.  13b's soak dataset
+    in `soak_dir` when it is there (a BED of its first loci written into
+    `tmp`: each locus's reads, SNP and record are its own), else the
+    4-locus soak written into `tmp`.  Returns (dataset dir, BED)."""
+    from hipstr_tpu_torch.tools import soak
+    from hipstr_tpu_torch.utils.simdata import SOAK_WIDE
+    os.makedirs(tmp, exist_ok=True)
+    n = SOAK_WIDE["n_loci"]
+    try:
+        with open(f"{soak_dir}/dataset.json") as fh:
+            have = json.load(fh)
+    except (OSError, TypeError, ValueError):
+        have = {}
+    if have.get("n_loci", 0) >= n and all(
+            have.get(k) == SOAK_WIDE[k] for k in ("n_samples", "reads")):
+        with open(f"{soak_dir}/regions.bed") as src, \
+                open(f"{tmp}/regions.bed", "w") as fh:
+            fh.writelines(src.readlines()[:n])
+        return soak_dir, f"{tmp}/regions.bed"
+    soak.generate(tmp, n, SOAK_WIDE["n_samples"], SOAK_WIDE["reads"], log)
+    return tmp, f"{tmp}/regions.bed"
+
+
+def check_wide_rounds(label, dl, res) -> dict:
+    """13d(ii) on one batched run's DispatchLog: every locus's first round
+    unfused, unfused dispatches at each H_pad of SOAK_WIDE_H, and
+    sample_sum launched once per fused dispatch (one card) and never on an
+    unfused one.  Returns the haplotype and H_pad histograms."""
+    firsts = {}
+    for order, _, fused, b in dl.locus_rounds:
+        firsts.setdefault(order, (fused, b["H_pad"]))
+    unfused = [r for r in dl.rows if not r[2]]
+    fused = len(dl.rows) - len(unfused)
+    stats = dict(
+        hap_hist=dict(sorted(Counter(h for _, _, _, hs, _ in dl.rows
+                                     for h in hs).items())),
+        h_pad_hist=dict(sorted(Counter(r[1] for r in dl.rows).items())),
+        unfused_h_pad_hist=dict(sorted(Counter(r[1] for r in unfused)
+                                       .items())),
+        first_rounds={o: dict(fused=f, H_pad=h)
+                      for o, (f, h) in sorted(firsts.items())},
+        unfused_dispatches=len(unfused), fused_dispatches=fused,
+        unfused_locus_rounds=sum(r[0] for r in unfused))
+    log(f"{label}: haplotypes per locus-round {stats['hap_hist']}, H_pad per "
+        f"dispatch {stats['h_pad_hist']}, {len(unfused)} of {len(dl.rows)} "
+        f"dispatches not fused (H_pad {stats['unfused_h_pad_hist']}), "
+        f"first rounds {stats['first_rounds']}, sample_sum launches "
+        f"{res['launches']['sample_sum']} for {fused} fused dispatches")
+    if len(dl.rows) != res["dispatches"]:
+        raise AssertionError(f"{label}: {len(dl.rows)} dispatches logged, "
+                             f"the run counted {res['dispatches']}")
+    if any(f for f, _ in firsts.values()) or len(firsts) != len(
+            vcf_body(SOAK_EM_VCF)):
+        raise AssertionError(f"{label}: a first round fused, or a locus "
+                             f"without one: {stats['first_rounds']}")
+    if not set(SOAK_WIDE_H) <= set(stats["unfused_h_pad_hist"]):
+        raise AssertionError(f"{label}: no unfused dispatch at some H_pad of "
+                             f"{SOAK_WIDE_H}: {stats['unfused_h_pad_hist']}")
+    if res["launches"]["sample_sum"] != fused:
+        raise AssertionError(f"{label}: sample_sum launched "
+                             f"{res['launches']['sample_sum']} times for "
+                             f"{fused} fused dispatches")
+    return stats
+
+
+def phase_soak_wide(tmp, device, soak_dir=None, device_name="cuda"):
+    """13d: the user's default run on the soak's wide rounds: the first
+    SOAK_WIDE loci of the soak (periods 1-4, 20 samples x 30 reads, a
+    phased SNP each; their first rounds are speculative supersets of 60-80
+    haplotypes, H_pad 64 and 128, whose posteriors the host computes).
+    (i) without a stutter model and with the default one, each run of
+    ANCHOR_RUNS held to tests/data/torch_port_soak_em_f64.vcf (with its
+    models file) and torch_port_soak4_f64.vcf; (ii) each f64 batched
+    run's first rounds unfused at H_pad 64 and 128 and sample_sum launched
+    only on the fused later rounds (check_wide_rounds); each pooled run's
+    workers computed the posteriors of every unfused locus-round; (iii)
+    the card's float64 em_train_batch on the four loci's EM problems
+    against the host EM, parameters within rel SOAK_WIDE_EM_REL; (iv) K2
+    at its most frequent H_pad-128 launch and K3 at its most frequent
+    launch of this phase, against their plain versions, timed beside the
+    bound.  Every check of (i)-(iii) runs before a failure is raised."""
+    import torch
+    from hipstr_tpu_torch.ops import hmm2, hmm_scan
+    from hipstr_tpu_torch.utils.simdata import (SOAK_MODEL_ARGS,
+                                                soak_em_args)
+    t0 = time.perf_counter()
+    d, bed = soak_wide_dataset(tmp, soak_dir)
+    n = len(vcf_body(SOAK_EM_VCF))
+    log(f"soak wide: {n} loci of {d} ({time.perf_counter() - t0:.2f} s)")
+    out, faults = {}, []
+    k2 = LeaderCapture(hmm2, "segment_kernel", shape_segment,
+                       keep=lambda s: s[1] == max(SOAK_WIDE_H))
+    k3 = LeaderCapture(hmm_scan, "segment_scan_kernel", shape_segment_scan)
+    with k2, k3:
+        for tag, ref_vcf, ref_models, model in (
+                ("soak em", SOAK_EM_VCF, SOAK_EM_MODELS, []),
+                ("soak model", SOAK4_VCF, None, SOAK_MODEL_ARGS)):
+            for run in ANCHOR_RUNS:
+                with DispatchLog() as dl:
+                    res, more = hold_anchor_runs(
+                        tag, tmp, [run], ref_vcf, ref_models, device_name,
+                        argv=lambda vcf: soak_em_args(d, vcf, bed) + model)
+                out.update(res)
+                faults += more
+                (label, r), = res.items()
+                try:
+                    if run[0] == "f64 batched":
+                        r.update(check_wide_rounds(label, dl, r))
+                    elif run[0] == "f64 pooled":
+                        rounds = sum(g for g, _, fused, _, _ in dl.rows
+                                     if not fused)
+                        log(f"{label}: the workers computed the posteriors "
+                            f"of {r['workers_host_posteriors']} locus-rounds"
+                            f", {rounds} in unfused dispatches")
+                        if not rounds or \
+                                r["workers_host_posteriors"] != rounds:
+                            raise AssertionError(
+                                f"{label}: workers' host posteriors "
+                                f"{r['workers_host_posteriors']}, unfused "
+                                f"locus-rounds {rounds}")
+                except AssertionError as exc:
+                    log(f"FAULT {exc}")
+                    faults.append(str(exc))
+    try:
+        em = phase_em_train(em_problems(d, n, f"{d}/snps.vcf"), device,
+                            "soak wide")
+        out["em_train"] = em
+        if em["f64_max_rel_err"] > SOAK_WIDE_EM_REL:
+            raise AssertionError(f"soak wide EM: params max rel err "
+                                 f"{em['f64_max_rel_err']:.3e} over "
+                                 f"{SOAK_WIDE_EM_REL}")
+    except AssertionError as exc:
+        log(f"FAULT {exc}")
+        faults.append(str(exc))
+    if faults:
+        raise AssertionError(f"phase 13d: {len(faults)} faults: {faults}")
+    out["launches"] = dict(sum((Counter(r["launches"]) for label, r in
+                                out.items() if label.startswith("soak ")),
+                               Counter()))
+    log_shapes("soak wide", {f"segment (H {max(SOAK_WIDE_H)})": k2.counts,
+                             "segment_scan": k3.counts})
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=device)
+    real = {}
+    for name, cap, kernel, plain, bound_fn in (
+            ("segment", k2, hmm2.segment_kernel, hmm2.segment_forward_plain,
+             bound_segment),
+            ("segment_scan", k3, hmm_scan.segment_scan_kernel,
+             hmm_scan.segment_scan_plain, bound_segment_scan)):
+        args, kwargs = cap.args[cap.leader]
+        real[name] = time_real(name, kernel, plain, bound_fn,
+                               tree_map(lambda t: t.to(device), args), kwargs,
+                               cap.leader, cap.counts[cap.leader], flush)
+        err = max(r["max_abs_err"] for r in real[name]
+                  if r["dtype"] == "float64")
+        if err > 1e-10:
+            raise AssertionError(f"soak wide {name}: f64 error {err:.3e} "
+                                 "over 1e-10")
+    del flush
+    out["real"] = real
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"phase 13d (soak wide) took {out['phase_s']:.1f} s")
+    check_no_jax()
+    return out
 
 
 # --------------------------------------------------------------- phase 10
@@ -3533,6 +3764,8 @@ def main() -> int:
         soak_real = phase_soak_kernels(device, captures)
         measuring["soak"] = {k: v for k, v in soak_res.items()
                              if k != "windows"}
+        measuring["soak_wide"] = soak_wide = phase_soak_wide(
+            f"{tmp}/soak_wide", device, f"{tmp}/soak")
         log(f"phase 13 (bench, soak, soak shapes) took "
             f"{time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
@@ -3579,7 +3812,8 @@ def main() -> int:
                 cohort_shape=s["shape"], cohort_ms=s["ms"],
                 cohort_plain_ms=s["plain_ms"], cohort_bound_ms=s["bound_ms"],
                 cohort_bound_by=s["bound_by"],
-                cohort_max_abs_err=s["max_abs_err"])
+                cohort_max_abs_err=s["max_abs_err"],
+                cohort_library_ms=s.get("library_ms"))
         if name in soak_real:        # phase 13c: the soak's shape, f32
             s = soak_real[name][0]
             summary["kernels"][-1].update(
@@ -3588,6 +3822,15 @@ def main() -> int:
                 soak_plain_ms=s["plain_ms"], soak_bound_ms=s["bound_ms"],
                 soak_bound_by=s["bound_by"],
                 soak_max_abs_err=s["max_abs_err"])
+        if name in soak_wide["real"]:   # 13d: the wide rounds' shape, f32
+            s = soak_wide["real"][name][0]
+            summary["kernels"][-1].update(
+                soak_wide_launches=soak_wide["launches"].get(name, 0),
+                soak_wide_shape=s["shape"], soak_wide_ms=s["ms"],
+                soak_wide_plain_ms=s["plain_ms"],
+                soak_wide_bound_ms=s["bound_ms"],
+                soak_wide_bound_by=s["bound_by"],
+                soak_wide_max_abs_err=s["max_abs_err"])
     if not all(k["launches"] > 0 for k in summary["kernels"]):
         raise AssertionError(f"a kernel was never launched: {summary}")
     print(json.dumps(summary), flush=True)

@@ -12,7 +12,9 @@ splits the program along the host/device boundary instead:
     src/bam_processor.cpp:173-474, src/genotyper_bam_processor.cpp:161-289,
     src/seq_stutter_genotyper.cpp:603-671), each on its own core.  They
     never touch the card: `CUDA_VISIBLE_DEVICES` is empty before any CUDA
-    call, and each reports at the end that CUDA stayed uninitialised.
+    call, and each reports at the end that CUDA stayed uninitialised,
+    and how many rounds' genotype posteriors it computed itself (those of
+    dispatches the parent did not fuse them into).
   * the *parent* owns the cards and every dispatch: the same shape-grouped
     batched alignments as the in-process executor (parallel/executor.py),
     each sharded over the same devices, and, without a stutter model on
@@ -88,6 +90,7 @@ def _worker_main(conn, spec: dict) -> None:
     # idx -> (region, genotyper, adaptive generator, chrom_seq)
     items: Dict[int, tuple] = {}
     em_pending: Dict[int, tuple] = {}  # idx -> (region, prep, chrom_seq)
+    host_posteriors = 0   # rounds whose posteriors this worker computed
     chrom = None
     chrom_seq = None
 
@@ -188,6 +191,7 @@ def _worker_main(conn, spec: dict) -> None:
             fail(idx, region, exc)
 
     def do_ll(idx, LL, post=None, totals=None):
+        nonlocal host_posteriors
         region, g, gen, local_seq = items[idx]
         try:
             g.set_pool_lls(LL)
@@ -197,6 +201,7 @@ def _worker_main(conn, spec: dict) -> None:
                     g.install_posteriors(post[:S, :A, :A], totals[:S])
                 else:
                     g.calc_log_sample_posteriors()
+                    host_posteriors += 1
                 if gen is None:
                     gen = g.adaptive_steps(opts.max_haps,
                                            opts.max_hap_flanks,
@@ -238,6 +243,7 @@ def _worker_main(conn, spec: dict) -> None:
             report = dict(
                 pid=os.getpid(),
                 cuda_initialized=bool(torch.cuda.is_initialized()),
+                host_posteriors=host_posteriors,
                 jax_loaded=sorted(
                     m for m, mod in sys.modules.items() if mod is not None
                     and m.split(".")[0] in ("jax", "hipstr_tpu")))

@@ -130,6 +130,30 @@ def soak_locus(i: int, n_samples: int, reads: int):
     return chrom, loc.chrom_seq, bed, contig, snp, recs
 
 
+# the soak's own 4-locus prefix (soak_locus(i, 20, 30), i = 0..3: periods
+# 1-4, a phased SNP each), written by tools.soak.generate: every locus's
+# first round is the speculative superset of 60-80 haplotypes (H_pad 64 or
+# 128, past the fused posteriors' cutoff of 32).  The anchors
+# tests/data/torch_port_soak_em_f64.vcf (no stutter model, with
+# torch_port_soak_em_models_f64.txt) and torch_port_soak4_f64.vcf (the
+# default model) are the JAX CLI's float64 runs on it
+SOAK_WIDE = dict(n_loci=4, n_samples=20, reads=30)
+# tools/soak.py:run's options: the uncompressed SNP VCF (the CLI reads it
+# whole), no stutter model unless SOAK_MODEL_ARGS are added
+SOAK_ARGS = ["--min-reads", "15", "--use-unpaired"]
+SOAK_MODEL_ARGS = ["--def-stutter-model"]
+
+
+def soak_em_args(d: str, out: str, regions: str = None):
+    """The genotyper's command line on a soak dataset written in `d`
+    (tools.soak.generate) without a stutter model, its phased SNPs
+    included, writing `out`; `regions` replaces the BED of every locus (no
+    --device, --dtype or mode flags)."""
+    return (["--bams", f"{d}/sim.bam", "--fasta", f"{d}/sim.fa",
+             "--regions", regions or f"{d}/regions.bed", "--snp-vcf",
+             f"{d}/snps.vcf", "--str-vcf", out, "--silent"] + SOAK_ARGS)
+
+
 # the dataset behind tests/data/torch_port_ref_f64.vcf: the JAX package's
 # float64 CPU run on it is the port's cross-machine anchor
 REFERENCE_DATASET = dict(n_loci=8, reads_per_sample=20, base_seed=4200,
@@ -156,8 +180,9 @@ LEARN_ARGS = ["--min-reads", "12", "--use-unpaired"]
 def period_loci():
     """The loci behind tests/data/torch_port_periods_f64.vcf: one spannable
     locus of each repeat period 5-9 (2 samples x 25 reads of 150 bp), and a
-    period-8 locus whose learned model is the pseudocounts alone (all six
-    parameters 1/(n + 5) of its n EM reads)."""
+    period-8 locus, chrP8b, whose learned model is the pseudocounts alone
+    (all six parameters 1/(n + 5) of its n EM reads): n is 35, so its UP
+    and DOWN parameters are 1/40, a tie of the VCF's {x:.2f} (0.025)."""
     locs = [simulate_locus(seed=7500 + period, n_samples=2,
                            reads_per_sample=25, read_len=150, period=period,
                            ref_units=max(5, 12 - period),
@@ -167,18 +192,6 @@ def period_loci():
                                period=8, ref_units=5, read_len=120,
                                chrom="chrP8b"))
     return locs
-
-
-def em_tie_loci():
-    """The locus behind tests/data/torch_port_em_tie_f64.vcf: 35 EM reads
-    and no stutter read, so its learned UP and DOWN parameters are 1/40,
-    a tie of the VCF's {x:.2f} (0.025)."""
-    from ..models.stutter import StutterModel
-    return [simulate_locus(seed=8900, n_samples=1, reads_per_sample=46,
-                           read_len=150, period=3, ref_units=8,
-                           stutter=StutterModel(0.9, 1e-9, 1e-9, 0.9, 1e-9,
-                                                1e-9, 3),
-                           chrom="chrTie")]
 
 
 def stutter_free_problems():

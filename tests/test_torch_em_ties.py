@@ -10,24 +10,18 @@ one ulp across a tie and print differently.
   convergence and iteration count equal those of the JAX package's host EM
   (hipstr_tpu/ops/em.py, the JAX CLI's float64 EM) bit for bit (n = 35 and
   n = 195 EM reads, 1/(n + 5) = 0.025 and 0.005);
-* the stutter-free locus of utils.simdata.em_tie_loci (35 EM reads): the
-  anchor tests/data/torch_port_em_tie_f64.vcf is the JAX CLI's float64
-  body, and the card's batched path (device EM and fused posteriors)
-  forced on the CPU writes it;
+* the stutter-free locus chrP8b of utils.simdata.period_loci (35 EM
+  reads): the JAX package's host EM on its EM problem learns the tie and
+  prints it as tests/data/torch_port_periods_f64.vcf does, and the port's
+  device EM learns it bit for bit (tests/test_torch_periods.py holds the
+  card's batched path, forced on the CPU, to that anchor's chrP8b record);
 * the fused posteriors (ops/posteriors.py) on reads that do not tell the
   alleles apart, so every posterior is a ratio of priors (A = 2-5,
   diploid and haploid): every field the VCF prints from them equals the
   one the JAX package's host posteriors print (hipstr_tpu/ops/posteriors.py:
   sample_posteriors with np.add.at, log_genotype_priors,
   extract_genotypes).
-
-`PYTHONPATH=.:tests python tests/test_torch_em_ties.py` rewrites the
-anchor from the JAX CLI.
 """
-
-import os
-import sys
-import tempfile
 
 import pytest
 import torch
@@ -35,19 +29,16 @@ import torch
 import chip_smoke
 from hipstr_tpu.ops import posteriors as jax_host_posteriors
 from hipstr_tpu.ops.em import EMStutterGenotyper
-from hipstr_tpu_torch import cli
+from hipstr_tpu_torch.io.regions import read_regions
 from hipstr_tpu_torch.ops import em_batched
-from hipstr_tpu_torch.parallel import executor
-from hipstr_tpu_torch.utils.simdata import (LEARN_ARGS, em_tie_loci,
+from hipstr_tpu_torch.utils.simdata import (period_loci,
                                             stutter_free_problems, write_sim)
 
-from test_torch_golden_a import card_em_rule
-from test_torch_slice import (ROOT, _body, _cli_args,  # noqa: F401
-                              one_torch_thread, run_jax_cli)
+from test_torch_periods import PERIODS_VCF
+from test_torch_slice import _body, one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
-TIE_VCF = os.path.join(ROOT, "tests", "data", "torch_port_em_tie_f64.vcf")
-TIE_ARGS = LEARN_ARGS + ["--dtype", "float64"]
+TIE_LOCUS = "chrP8b"
 
 
 @pytest.mark.parametrize("case", [0, 1], ids=["n35", "n195"])
@@ -70,32 +61,44 @@ def test_pseudocount_models_bit_equal_to_host_em(case):
 
 
 @pytest.fixture(scope="module")
-def tie_dir(tmp_path_factory):
-    d = str(tmp_path_factory.mktemp("em_tie"))
-    write_sim(d, em_tie_loci())
-    return d
+def tie_problem(tmp_path_factory):
+    """chrP8b's host-EM inputs, as the batched run stages them, and the JAX
+    package's host EM trained on them."""
+    d = str(tmp_path_factory.mktemp("periods"))
+    write_sim(d, period_loci())
+    regions = read_regions(f"{d}/regions.bed", 1 << 30)
+    i = [r.chrom for r in regions].index(TIE_LOCUS)
+    _, raw = chip_smoke.em_problems(d, len(regions))[i]
+    return raw, EMStutterGenotyper(*raw, 0).train()
 
 
-def test_em_tie_anchor_is_current(tie_dir):
-    d = tie_dir
-    run_jax_cli(_cli_args(d, f"{d}/jax.vcf") + TIE_ARGS)
-    want = _body(TIE_VCF)
-    assert len(want) == 1 and "INFRAME_UP=0.03;" in want[0]
-    assert _body(f"{d}/jax.vcf") == want
-
-
-def test_device_em_prints_the_tie_as_the_host(tie_dir, monkeypatch):
-    """The card's batched path forced on the CPU in float64: one device EM
-    wave, the anchor's body."""
-    d = tie_dir
-    monkeypatch.setattr(executor, "device_em_enabled", card_em_rule)
-    monkeypatch.setattr(executor, "device_post_enabled", lambda dev: True)
-    pipeline, counters = cli.run(
-        _cli_args(d, f"{d}/dev.vcf") + TIE_ARGS
-        + ["--device", "cpu", "--host-workers", "1"])
-    assert pipeline.last_run_stats["em_waves"] == 1
-    assert counters.genotype_success == 1 and counters.genotype_fail == 0
-    assert _body(f"{d}/dev.vcf") == _body(TIE_VCF)
+@pytest.mark.parametrize("learner", ["jax_host_em", "device_em"])
+def test_p8b_learns_the_pseudocount_tie(tie_problem, learner):
+    """chrP8b's model is the pseudocounts of its 35 EM reads, 1/40, a tie
+    of the VCF's {x:.2f}: the JAX package's host EM prints it as the
+    periods anchor does (0.03), and the port's device EM in float64
+    learns its six parameters, convergence and iterations bit for bit."""
+    raw, host = tie_problem
+    sm = host.stutter_model
+    want = [sm.in_geom, sm.in_up, sm.in_down, sm.out_geom, sm.out_up,
+            sm.out_down]
+    if learner == "jax_host_em":
+        assert sum(map(len, raw[2])) == 35
+        assert want[1] == pytest.approx(1 / 40)
+        record, = [l for l in _body(PERIODS_VCF)
+                   if l.startswith(TIE_LOCUS + "\t")]
+        info = dict(kv.split("=") for kv in record.split("\t")[7].split(";"))
+        assert [info[k] for k in (
+            "INFRAME_PGEOM", "INFRAME_UP", "INFRAME_DOWN", "OUTFRAME_PGEOM",
+            "OUTFRAME_UP", "OUTFRAME_DOWN")] == [f"{x:.2f}" for x in want]
+        assert info["INFRAME_UP"] == "0.03"
+        return
+    arrays, (_, _, Sm) = em_batched.pack_problems(
+        [em_batched.EMProblem.build(*raw)])
+    got = em_batched.em_train_batch(arrays, Sm, CPU, torch.float64)
+    assert got["params"][0].tolist() == want
+    assert bool(got["converged"][0]) == host.converged
+    assert int(got["iters"][0]) == host.num_iterations
 
 
 # ------------------------------------------------ posteriors at prior ratios
@@ -115,16 +118,3 @@ def test_fused_posteriors_at_prior_ratios_print_as_the_host(A, haploid):
     assert got == want
     assert diff < 1e-12
 
-
-def write_anchor() -> None:
-    """Rewrite tests/data/torch_port_em_tie_f64.vcf from the JAX CLI."""
-    with tempfile.TemporaryDirectory() as d:
-        write_sim(d, em_tie_loci())
-        run_jax_cli(_cli_args(d, f"{d}/jax.vcf") + TIE_ARGS)
-        with open(TIE_VCF, "w") as fh:
-            fh.writelines(_body(f"{d}/jax.vcf"))
-
-
-if __name__ == "__main__":
-    write_anchor()
-    sys.exit(0)

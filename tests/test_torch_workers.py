@@ -107,6 +107,11 @@ def test_pool_equals_in_process(pool_sim, mode):
     assert len(res["workers"]) == 2
     for report in res["workers"]:
         assert not report["cuda_initialized"] and not report["jax_loaded"]
+    # the workers compute a round's posteriors only where the parent did
+    # not fuse them: every round without fused posteriors, none with them
+    # (these loci's rounds are all at H_pad <= 32)
+    host = sum(r["host_posteriors"] for r in res["workers"])
+    assert host >= len(bat) if mode == "model" else host == 0
 
 
 def test_cli_pool_matches_em_reference(tmp_path):
