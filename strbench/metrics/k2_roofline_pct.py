@@ -1,0 +1,10 @@
+"""K2 (csrc/segment.cu) against its roofline in the measured window: the
+bound of each captured launch (strbench/roofline/segment.py, the card's
+published peaks) over the launches' device time from torch.profiler."""
+
+from ..roofline import segment
+from . import roofline_pct
+
+
+def read(run):
+    return roofline_pct(run, segment)
