@@ -149,8 +149,13 @@ def build_parser() -> argparse.ArgumentParser:
                     help="Capture a torch.profiler host (and, on cuda, "
                          "device) trace of the run into DIR, one file per "
                          "process (view with Perfetto or TensorBoard); "
-                         "the per-phase host timing table always prints at "
-                         "exit (reference's per-locus timers: "
+                         "the host's timed phases, and the states of the "
+                         "pooled parent's loop (Pool route, Pool send, "
+                         "Pool dispatch, Stutter estimation (device), Pool "
+                         "wait fill/fetch/idle), appear as ranges on the "
+                         "device's timeline; the per-phase host timing "
+                         "table always prints at exit (reference's "
+                         "per-locus timers: "
                          "src/genotyper_bam_processor.cpp:254-276)")
     ap.add_argument("--silent", action="store_true")
     ap.add_argument("--log")

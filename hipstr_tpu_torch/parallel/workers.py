@@ -25,10 +25,33 @@ Messages (pickled over pipes):
                     ("emr", idx, params, converged), ("fin",)
   worker -> parent: ("ready", idx, arrays, statics), ("em", idx, EMProblem),
                     ("settled", idx, record, viz), ("log", text),
-                    ("fin", counters, stutter models, timers, report)
+                    ("timers", totals), ("fin", counters, stutter models,
+                    totals, report)
 They carry the packed int8/uint8 tensors, so a locus costs a few KB.  VCF
 records come back tagged with their BED index and enter the writer in BED
-order.  The parent reads each worker's pipe on a thread of its own, so
+order.  A worker hands its timer totals over about once a second
+("timers": what accrued since the last hand-over; "fin" the rest), so the
+parent's `pipeline.timer` holds them, as "<name> (workers)", while the run
+goes on.
+
+Time is accounted for on both sides.  The parent's loop is a partition of
+states (ProcessTimer.switch): "Pool route" (handling inbox messages,
+feeding preps, the VCF writer, fetch bookkeeping), "Pool send" (the "ll"
+and "emr" replies), "Pool dispatch" (stacking, copies, launches),
+"Stutter estimation (device)" (an EM wave), and, blocked on a queue or
+asleep, "Pool wait fill" (loci staged, no dispatch in flight), "Pool wait
+fetch" (a dispatch in flight) or "Pool wait idle" (neither); they sum to
+"Pool loop", and "Pool idle" is "Pool wait idle" + "Pool wait fetch".
+"Pool send" is mostly a wait too: a reply's write blocks while the
+worker's pipe is full, which it stays until the worker is done with the
+locus in hand.  A worker's "Worker wall" (first recv to "fin") is its
+leaf timers ("Read filtering", "SNP info extraction", "Stutter
+estimation", "Left alignment", "Genotyper build", "LL install",
+"Genotyping (adaptive)", "Locus packing", "Worker send": every send but
+the "settled" one that "Genotyping (adaptive)" holds), plus "Worker idle"
+(blocked on its pipe), plus "Worker other" (the rest).  "VCF record
+construction" is nested in "Genotyping (adaptive)" and counted in it.
+The parent reads each worker's pipe on a thread of its own, so
 neither side can block the other with a full pipe.  A device error ends
 the run; a worker that dies ends it too (its closed pipe's EOFError is
 raised in the main loop), and the other workers are terminated.
@@ -50,6 +73,16 @@ from .executor import (BatchedAligner, EMStats, LocusWorkItem, close_outputs,
                        device_em_enabled, device_post_enabled,
                        dispatch_devices, em_problem, open_vcf, solve_em,
                        _fetch)
+
+# seconds between a worker's timer hand-overs
+TIMERS_EVERY_S = 1.0
+
+
+def add_worker_timers(pipeline, totals: Dict[str, float]) -> None:
+    """Add a worker's handed-over timer totals to the parent's, each under
+    "<name> (workers)"."""
+    for name, secs in totals.items():
+        pipeline.timer.add_time(f"{name} (workers)", secs)
 
 
 # --------------------------------------------------------------- worker side
@@ -93,11 +126,16 @@ def _worker_main(conn, spec: dict) -> None:
     host_posteriors = 0   # rounds whose posteriors this worker computed
     chrom = None
     chrom_seq = None
+    timer = pipeline.timer
+
+    def send(msg) -> None:
+        with timer.time("Worker send"):
+            conn.send(msg)
 
     def fail(idx, region, exc) -> None:
         pipeline.counters.genotype_fail += 1
-        conn.send(("log", f"ERROR at {region}: {exc!r}"))
-        conn.send(("settled", idx, None, None))
+        send(("log", f"ERROR at {region}: {exc!r}"))
+        send(("settled", idx, None, None))
 
     def build_record(g, region, local_seq):
         pipeline.counters.genotype_success += 1
@@ -135,16 +173,16 @@ def _worker_main(conn, spec: dict) -> None:
         packed = pack(g)
         if packed is None:
             pipeline.counters.genotype_fail += 1
-            conn.send(("settled", idx, None, None))
+            send(("settled", idx, None, None))
             return
         items[idx] = (region, g, None, local_seq)
-        conn.send(("ready", idx, *packed))
+        send(("ready", idx, *packed))
 
     def do_prep(idx, region):
         nonlocal chrom, chrom_seq
         if region.stop - region.start > opts.max_str_len:
             pipeline.counters.too_long += 1
-            conn.send(("settled", idx, None, None))
+            send(("settled", idx, None, None))
             return
         if region.chrom != chrom:
             chrom = region.chrom
@@ -153,15 +191,15 @@ def _worker_main(conn, spec: dict) -> None:
             if device_em:
                 staged = em_problem(pipeline, region, chrom_seq)
                 if staged is None:
-                    conn.send(("settled", idx, None, None))
+                    send(("settled", idx, None, None))
                     return
                 prep, prob = staged
                 em_pending[idx] = (region, prep, chrom_seq)
-                conn.send(("em", idx, prob))
+                send(("em", idx, prob))
                 return
             g = pipeline.prepare_locus_genotyper(region, chrom_seq)
             if g is None:
-                conn.send(("settled", idx, None, None))
+                send(("settled", idx, None, None))
                 return
             stage(idx, region, g, chrom_seq)
         except Exception as exc:  # skip-and-continue, like the reference
@@ -174,17 +212,17 @@ def _worker_main(conn, spec: dict) -> None:
         try:
             if not converged:
                 pipeline.counters.em_fail += 1
-                conn.send(("log", f"Stutter EM failed for {region}"))
-                conn.send(("settled", idx, None, None))
+                send(("log", f"Stutter EM failed for {region}"))
+                send(("settled", idx, None, None))
                 return
             model = StutterModel(*params, region.period)
             pipeline.register_learned_model(region, model)
             if opts.skip_genotyping:
-                conn.send(("settled", idx, None, None))
+                send(("settled", idx, None, None))
                 return
             g = pipeline.finish_prepare(prep, region, local_seq, model)
             if g is None:
-                conn.send(("settled", idx, None, None))
+                send(("settled", idx, None, None))
                 return
             stage(idx, region, g, local_seq)
         except Exception as exc:
@@ -194,8 +232,9 @@ def _worker_main(conn, spec: dict) -> None:
         nonlocal host_posteriors
         region, g, gen, local_seq = items[idx]
         try:
-            g.set_pool_lls(LL)
-            with pipeline.timer.time("Genotyping (adaptive)"):
+            with timer.time("LL install"):
+                g.set_pool_lls(LL)
+            with timer.time("Genotyping (adaptive)"):
                 if post is not None:
                     S, A = g.num_samples, g.num_alleles
                     g.install_posteriors(post[:S, :A, :A], totals[:S])
@@ -211,6 +250,8 @@ def _worker_main(conn, spec: dict) -> None:
                     next(gen)
                 except StopIteration as stop:
                     del items[idx]
+                    # sent inside "Genotyping (adaptive)", which
+                    # adaptive_ms_per_locus reads; so not in "Worker send"
                     if stop.value:
                         rec, viz = build_record(g, region, local_seq)
                         conn.send(("settled", idx, rec, viz))
@@ -221,16 +262,33 @@ def _worker_main(conn, spec: dict) -> None:
             packed = pack(g)
             if packed is None:
                 raise RuntimeError("no reads to realign")
-            conn.send(("ready", idx, *packed))
+            send(("ready", idx, *packed))
         except Exception as exc:
             items.pop(idx, None)
             fail(idx, region, exc)
 
-    idle_t = 0.0
+    handed: Dict[str, float] = {}     # totals already handed over
+    t_handed = time.perf_counter()    # the first recv's start
+    covered_handed = 0.0
+
+    def hand_over() -> Dict[str, float]:
+        """What the timers accrued since the last hand-over, with the
+        interval's "Worker wall" and "Worker other" (the wall that no
+        outermost timer, "Worker idle" included, covered)."""
+        nonlocal t_handed, covered_handed
+        now = time.perf_counter()
+        out = {k: v - handed.get(k, 0.0) for k, v in timer.totals.items()
+               if v != handed.get(k, 0.0)}
+        handed.update(timer.totals)
+        out["Worker wall"] = now - t_handed
+        out["Worker other"] = out["Worker wall"] - (timer.covered
+                                                    - covered_handed)
+        t_handed, covered_handed = now, timer.covered
+        return out
+
     while True:
-        t0 = time.perf_counter()
-        msg = conn.recv()
-        idle_t += time.perf_counter() - t0
+        with timer.time("Worker idle"):
+            msg = conn.recv()
         tag = msg[0]
         if tag == "prep":
             do_prep(msg[1], msg[2])
@@ -239,7 +297,6 @@ def _worker_main(conn, spec: dict) -> None:
         elif tag == "emr":
             do_emr(msg[1], msg[2], msg[3])
         elif tag == "fin":
-            pipeline.timer.add_time("Worker idle", idle_t)
             report = dict(
                 pid=os.getpid(),
                 cuda_initialized=bool(torch.cuda.is_initialized()),
@@ -247,10 +304,12 @@ def _worker_main(conn, spec: dict) -> None:
                 jax_loaded=sorted(
                     m for m, mod in sys.modules.items() if mod is not None
                     and m.split(".")[0] in ("jax", "hipstr_tpu")))
-            conn.send(("fin", pipeline.counters, pipeline._stutter_out,
-                       pipeline.timer.totals, report))
+            send(("fin", pipeline.counters, pipeline._stutter_out,
+                  hand_over(), report))
             conn.close()
             return
+        if time.perf_counter() - t_handed >= TIMERS_EVERY_S:
+            send(("timers", hand_over()))
 
 
 # --------------------------------------------------------------- parent side
@@ -355,6 +414,7 @@ def run_pooled(pipeline, regions_bed: str, out_vcf: Optional[str], device,
             next_region += 1
 
     t_spawn, t_first = 0.0, None
+    timer = pipeline.timer
 
     def handle_msg(w, msg):
         nonlocal n_settled, t_first
@@ -373,6 +433,8 @@ def run_pooled(pipeline, regions_bed: str, out_vcf: Optional[str], device,
             em_jobs.append((msg[1], w, msg[2]))
         elif tag == "log":
             pipeline.logger.log(msg[1])
+        elif tag == "timers":
+            add_worker_timers(pipeline, msg[1])
         else:
             raise RuntimeError(f"worker {w} sent {tag!r}")
 
@@ -400,13 +462,30 @@ def run_pooled(pipeline, regions_bed: str, out_vcf: Optional[str], device,
             raise msg
         return w, msg
 
+    def wait_state() -> str:
+        """The state of the loop blocked now."""
+        if n_inflight:
+            return "Pool wait fetch"
+        return "Pool wait fill" if ready or em_jobs else "Pool wait idle"
+
+    def waited(get, timeout: float):
+        """get(timeout=timeout); one that may block (timeout > 0) is timed
+        in its wait state, apart from the handling of what it returns."""
+        if timeout <= 0:
+            return get(timeout=0.0)
+        timer.switch(wait_state())
+        try:
+            return get(timeout=timeout)
+        finally:
+            timer.switch("Pool route")
+
     def poll_workers(timeout=0.0):
         """Handle every waiting message, waiting up to `timeout` s for the
         first."""
         got = False
         while True:
             try:
-                w, msg = next_msg(timeout if not got else 0.0)
+                w, msg = waited(next_msg, timeout if not got else 0.0)
             except queue.Empty:
                 return got
             handle_msg(w, msg)
@@ -417,24 +496,28 @@ def run_pooled(pipeline, regions_bed: str, out_vcf: Optional[str], device,
         (run_batched.solve_staged_em parity), then reply to the owners."""
         nonlocal em_jobs
         jobs, em_jobs = em_jobs, []
-        with pipeline.timer.time("Stutter estimation (device)"):
-            params, conv = solve_em([j[2] for j in jobs], opts, device,
-                                    em_stats)
+        timer.switch("Stutter estimation (device)")
+        params, conv = solve_em([j[2] for j in jobs], opts, device, em_stats)
+        timer.switch("Pool send")
         for i, (idx, w, _prob) in enumerate(jobs):
             conns[w].send(("emr", idx, tuple(float(x) for x in params[i]),
                            bool(conv[i])))
             outstanding[w] += 1
+        timer.switch("Pool route")
 
     def dispatch_ready():
         nonlocal ready, n_inflight
+        timer.switch("Pool dispatch")
         for item in ready:
             aligner.add(item)
         ready = []
         for chunk, handle in aligner.dispatch_all():
             n_inflight += 1
             inflight_q.put((chunk, handle))
+        timer.switch("Pool route")
 
     def send_lls(chunk, res) -> None:
+        timer.switch("Pool send")
         if isinstance(res, tuple):
             LL_all, post_all, tot_all = res
         else:
@@ -446,14 +529,15 @@ def run_pooled(pipeline, regions_bed: str, out_vcf: Optional[str], device,
                 msg += (post_all[gi], tot_all[gi])
             conns[item.worker].send(msg)
             outstanding[item.worker] += 1
+        timer.switch("Pool route")
 
     def drain_fetched(block: bool = False) -> bool:
         nonlocal n_inflight
         got = False
         while True:
             try:
-                chunk, res = fetched.get(timeout=0.05 if block and not got
-                                         else 0.0)
+                chunk, res = waited(fetched.get,
+                                    0.05 if block and not got else 0.0)
             except queue.Empty:
                 return got
             if chunk is None:
@@ -483,12 +567,12 @@ def run_pooled(pipeline, regions_bed: str, out_vcf: Optional[str], device,
         for f in fetchers:
             f.start()
 
-        t_poll = t_idle = 0.0
+        # every second of the loop in one state, from here to the last
+        # drain_settled (see the module's docstring)
+        t_loop = timer.switch("Pool route")
         while n_settled < n_regions:
             feed_preps()
-            t0 = time.perf_counter()
             poll_workers(timeout=0.001)
-            t_poll += time.perf_counter() - t0
             drain_settled()
             drain_fetched()
             # dispatch once enough work is staged, or when nothing else can
@@ -502,21 +586,21 @@ def run_pooled(pipeline, regions_bed: str, out_vcf: Optional[str], device,
             if ready and (len(ready) >= window or starved or idle):
                 dispatch_ready()
             if not ready and not n_inflight and n_settled < n_regions:
-                t0 = time.perf_counter()
                 if not poll_workers(timeout=0.05):
+                    timer.switch(wait_state())
                     time.sleep(0.005)
-                t_idle += time.perf_counter() - t0
+                    timer.switch("Pool route")
             elif n_inflight and not poll_workers():
-                t0 = time.perf_counter()
                 drain_fetched(block=True)
-                t_idle += time.perf_counter() - t0
         drain_settled()
-        pipeline.timer.add_time("Device fetch", fetch_t[0])
-        pipeline.timer.add_time("Pool poll", t_poll)
-        pipeline.timer.add_time("Pool idle", t_idle)
+        timer.add_time("Pool loop", timer.switch(None) - t_loop)
+        totals = timer.totals
+        timer.add_time("Pool idle", totals.get("Pool wait idle", 0.0)
+                       + totals.get("Pool wait fetch", 0.0))
+        timer.add_time("Device fetch", fetch_t[0])
         # spawn to the first reply: the workers' interpreter start and
         # imports, and their first locus
-        pipeline.timer.add_time("Worker start", t_first or 0.0)
+        timer.add_time("Worker start", t_first or 0.0)
 
         # collect the workers' counters, models, timers and reports
         for c in conns:
@@ -532,8 +616,7 @@ def run_pooled(pipeline, regions_bed: str, out_vcf: Optional[str], device,
                         getattr(pipeline.counters, f.name)
                         + getattr(counters, f.name))
             pipeline._stutter_out.update(stutter_out)
-            for name, secs in timer_totals.items():
-                pipeline.timer.add_time(f"{name} (workers)", secs)
+            add_worker_timers(pipeline, timer_totals)
             reports.append(report)
         for c in conns:
             c.close()
@@ -541,6 +624,7 @@ def run_pooled(pipeline, regions_bed: str, out_vcf: Optional[str], device,
             proc.join(timeout=10)
         clean = True
     finally:
+        timer.switch(None)      # a loop that raised leaves its state open
         for _ in fetchers:
             inflight_q.put(None)
         for proc in procs:

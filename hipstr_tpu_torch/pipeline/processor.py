@@ -596,33 +596,32 @@ class GenotyperPipeline:
             log_p1s, log_p2s = self._phase_from_10x_tags(
                 paired_by_rg, unpaired_by_rg)
         elif self.snp_vcf is not None:
-            t0 = __import__("time").perf_counter()
-            from ..phasing.snp_phasing import (calc_het_snp_factors,
-                                               create_snp_sets)
-            SKIP_PADDING = 15
-            if self.haplotype_tracker is not None:
-                self.haplotype_tracker.advance(region.chrom, region.start)
-            res = create_snp_sets(
-                region.chrom, max(1, region.start - self.opts.max_mate_dist),
-                region.stop + self.opts.max_mate_dist, [region], SKIP_PADDING,
-                self.snp_vcf, self.haplotype_tracker)
-            if res is not None:
-                snp_sets, _ = res
-                counts: Dict[str, int] = {}
-                for k, rg in enumerate(rg_names):
-                    if rg in snp_sets:
-                        p1a, p2a = calc_het_snp_factors(
-                            paired_by_rg[k], mates_by_rg[k], self.bq,
-                            snp_sets[rg], counts)
-                        p1b, p2b = calc_het_snp_factors(
-                            unpaired_by_rg[k], None, self.bq,
-                            snp_sets[rg], counts)
-                        log_p1s[k] = p1a + p1b
-                        log_p2s[k] = p2a + p2b
-                self.phase_match_count += counts.get("match", 0)
-                self.phase_mismatch_count += counts.get("mismatch", 0)
-            self.timer.add_time("SNP info extraction",
-                                __import__("time").perf_counter() - t0)
+            with self.timer.time("SNP info extraction"):
+                from ..phasing.snp_phasing import (calc_het_snp_factors,
+                                                   create_snp_sets)
+                SKIP_PADDING = 15
+                if self.haplotype_tracker is not None:
+                    self.haplotype_tracker.advance(region.chrom, region.start)
+                res = create_snp_sets(
+                    region.chrom,
+                    max(1, region.start - self.opts.max_mate_dist),
+                    region.stop + self.opts.max_mate_dist, [region],
+                    SKIP_PADDING, self.snp_vcf, self.haplotype_tracker)
+                if res is not None:
+                    snp_sets, _ = res
+                    counts: Dict[str, int] = {}
+                    for k, rg in enumerate(rg_names):
+                        if rg in snp_sets:
+                            p1a, p2a = calc_het_snp_factors(
+                                paired_by_rg[k], mates_by_rg[k], self.bq,
+                                snp_sets[rg], counts)
+                            p1b, p2b = calc_het_snp_factors(
+                                unpaired_by_rg[k], None, self.bq,
+                                snp_sets[rg], counts)
+                            log_p1s[k] = p1a + p1b
+                            log_p2s[k] = p2a + p2b
+                    self.phase_match_count += counts.get("match", 0)
+                    self.phase_mismatch_count += counts.get("mismatch", 0)
 
         total_reads = sum(len(a) for a in alns_by_rg)
         if total_reads < self.opts.min_reads:
@@ -693,21 +692,24 @@ class GenotyperPipeline:
                 return None
             ref_vcf_alleles = res
 
-        g = SeqStutterGenotyper(
-            region, haploid, True, left_alns, filt_p1s,
-            filt_p2s, rg_names, chrom_seq, stutter_model,
-            ref_vcf_alleles=ref_vcf_alleles, dtype=self.opts.dtype,
-            logger=self.logger)
-        if not g.initialized:
-            self.counters.genotype_fail += 1
-            return None
-        if g.num_alleles > self.opts.max_haps:
-            self.logger.log(f"Aborting {region}: too many candidate haplotypes")
-            self.counters.genotype_fail += 1
-            return None
-        if not g.genotype_prepare():
-            self.counters.genotype_fail += 1
-            return None
+        # the haplotypes and candidate alleles
+        with self.timer.time("Genotyper build"):
+            g = SeqStutterGenotyper(
+                region, haploid, True, left_alns, filt_p1s,
+                filt_p2s, rg_names, chrom_seq, stutter_model,
+                ref_vcf_alleles=ref_vcf_alleles, dtype=self.opts.dtype,
+                logger=self.logger)
+            if not g.initialized:
+                self.counters.genotype_fail += 1
+                return None
+            if g.num_alleles > self.opts.max_haps:
+                self.logger.log(
+                    f"Aborting {region}: too many candidate haplotypes")
+                self.counters.genotype_fail += 1
+                return None
+            if not g.genotype_prepare():
+                self.counters.genotype_fail += 1
+                return None
         return g
 
     def analyze_region(self, region: Region, chrom_seq: str,
