@@ -1270,12 +1270,12 @@ def phase_em(tmp):
     run_b = em_slice_run(tmp, f"{tmp}/em_b.vcf", EM_POOL_WORKERS)
     b = em_run_stats(f"pooled ({EM_POOL_WORKERS} workers)", *run_b)
     # run_pooled raises unless every worker kept CUDA uninitialised and
-    # loaded no JAX: their reports
+    # loaded no JAX; none loads torch: their reports
     reports = run_b[0].last_run_stats["workers"]
     log(f"EM pooled: worker reports {reports}")
     if len(reports) != EM_POOL_WORKERS or any(
-            r["cuda_initialized"] or r["jax_loaded"] for r in reports):
-        raise AssertionError("EM pooled: a worker touched CUDA or JAX")
+            r["torch_loaded"] or r["jax_loaded"] for r in reports):
+        raise AssertionError("EM pooled: a worker loaded torch or JAX")
     got, want = vcf_body(f"{tmp}/em_b.vcf"), vcf_body(f"{tmp}/em_a.vcf")
     if len(got) != len(want):
         raise AssertionError(f"EM pooled: {len(got)} records, in-process "
@@ -1294,12 +1294,19 @@ def phase_em(tmp):
     return dict(in_process=a, pooled=b)
 
 
-def child_import_s(n: int, module: str = "hipstr_tpu_torch.parallel.workers",
+# what a pool's worker imports before its first locus (no torch)
+WORKER_MODULES = ("hipstr_tpu_torch.parallel.pool_worker, "
+                  "hipstr_tpu_torch.pipeline.processor, "
+                  "hipstr_tpu_torch.pipeline.locus_pack")
+
+
+def child_import_s(n: int, module: str = WORKER_MODULES,
                    tag: str = "EM pooled") -> dict:
     """Wall seconds for n fresh interpreters started together, as a pool's
     workers (or --workers children) are, to import nothing and to import
-    `module` (torch and the port): the part of their start that is not
-    the first locus."""
+    `module` (one module or several, comma-separated: the port's host
+    modules, and torch where they import it): the part of their start
+    that is not the first locus."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=ROOT)
     out = {}
     for label, code in (("bare", "pass"), (module, f"import {module}")):

@@ -20,7 +20,8 @@ Package layout:
   pipeline/    per-locus packing (prepare_locus), the torch aligner, the
                sequential run, and the host pipeline (copies)
   parallel/    the batched executor (run_batched, each dispatch sharded
-               over the devices) and the host worker pool (run_pooled)
+               over the devices) and the host worker pool (run_pooled;
+               its workers, pool_worker.py, never import torch)
   utils/       simulated datasets, math, timers
   cli.py       `python -m hipstr_tpu_torch.cli`
   graft_entry.py  the counterparts of __graft_entry__.py (entry,

@@ -3,20 +3,22 @@
 `cuda` is the default device.  Asking for `cuda` where no card is visible
 raises: the port never carries on silently on the CPU.  float64 is allowed
 on the card (the JAX package had to force the CPU for it).  `local_devices`
-lists the cards a batched dispatch is sharded over.
+lists the cards a batched dispatch is sharded over.  Each function
+imports torch when it runs: the CLI imports this module, and the pool's
+host workers, which import the CLI again where it is the main module,
+never load torch.
 """
 
 from __future__ import annotations
 
 from typing import List
 
-import torch
-
-DTYPES = {"float32": torch.float32, "float64": torch.float64}
+DTYPES = ("float32", "float64")     # torch's dtypes of these names
 
 
 def resolve_device(name: str = "cuda") -> torch.device:
     """torch.device for `cuda` or `cpu`; raises if `cuda` is unavailable."""
+    import torch
     if name not in ("cuda", "cpu"):
         raise ValueError(f"unknown device {name!r} (expected cuda or cpu)")
     if name == "cuda":
@@ -37,6 +39,7 @@ def local_devices(device) -> List[torch.device]:
     CUDA_VISIBLE_DEVICES); for a card named by index (a `--distributed`
     rank's, parallel/distributed.place) that card alone; for `cpu` [cpu].
     `cuda` without a visible card raises."""
+    import torch
     device = torch.device(device)
     if device.type == "cpu":
         return [device]
@@ -49,10 +52,11 @@ def local_devices(device) -> List[torch.device]:
 
 
 def resolve_dtype(name: str = "float32") -> torch.dtype:
+    import torch
     if name not in DTYPES:
         raise ValueError(f"unknown dtype {name!r} (expected one of "
                          f"{sorted(DTYPES)})")
-    return DTYPES[name]
+    return getattr(torch, name)
 
 
 def resolve(device: str = "cuda", dtype: str = "float32"):

@@ -2,8 +2,9 @@
 of the stutter-aware HMM.
 
 Counterpart of hipstr_tpu/ops/hmm.py (reference HapAligner.cpp:26-231).
-The containers keep the JAX package's field names; here they hold torch
-tensors (or, straight out of `prepare_locus`, numpy arrays).  The row
+The containers (defined in ops/hmm_containers.py, which imports no torch,
+and re-exported here) keep the JAX package's field names; here they hold
+torch tensors (or, straight out of `prepare_locus`, numpy arrays).  The row
 functions work on [G, H, P, L] state (locus, haplotype, pool, read lane)
 with per-(locus, haplotype) row metadata, the layout of the batched
 segment forward in ops/hmm2.py; `flank_row` and `forced_match_row` also
@@ -17,12 +18,11 @@ launches), both in ops/hmm_scan.py.
 
 from __future__ import annotations
 
-from typing import NamedTuple
-
 import numpy as np
 import torch
 
 from ..models.base_quality import BaseQuality
+from .hmm_containers import HapMeta, SeedMeta, SegmentInputs  # noqa: F401
 
 IMPOSSIBLE = -1.0e9
 NEG = -1.0e30
@@ -30,40 +30,6 @@ LOG_INS_TO_INS = -1.0
 LOG_INS_TO_MATCH = float(np.log1p(-np.exp(-1.0)))
 LOG_DEL_TO_DEL = -1.0
 LOG_DEL_TO_MATCH = float(np.log1p(-np.exp(-1.0)))
-
-
-class SegmentInputs(NamedTuple):
-    """One read segment per pool (left of seed, or reversed right)."""
-
-    codes: torch.Tensor      # [.., P, L] int8 base codes (4 = N/pad)
-    quals: torch.Tensor      # [.., P, L] uint8 raw quality bytes (0 = pad)
-    last_col: torch.Tensor   # [.., P] int32: segment_len - 1
-
-
-class HapMeta(NamedTuple):
-    """Per-haplotype row metadata for one orientation (fw or rev)."""
-
-    row_char: torch.Tensor       # [.., H, R] int8 hap char codes
-    row_m2m: torch.Tensor        # [.., H, R] match->match log prob
-    row_m2i: torch.Tensor        # [.., H, R] match->ins
-    row_m2d: torch.Tensor        # [.., H, R] match->del
-    rep_rev_codes: torch.Tensor  # [.., O, Bmax] repeat alleles, right-to-left
-    rep_len: torch.Tensor        # [.., O] int32
-    lpmf: torch.Tensor           # [.., O, nD] log P(artifact size)
-    hap_opt: torch.Tensor        # [.., H] int32 repeat option per haplotype
-    row_active: torch.Tensor     # [.., R] bool; False marks padding rows
-
-
-class SeedMeta(NamedTuple):
-    seed_fw_row: torch.Tensor    # [.., S] fw structural row of the M_l anchor
-    seed_rev_row: torch.Tensor   # [.., S] rev structural row of the M_r anchor
-    seed_char: torch.Tensor      # [.., H, S] hap char under the seed
-    seed_valid: torch.Tensor     # [.., S] bool
-    first_char: torch.Tensor     # [.., H]
-    last_char: torch.Tensor      # [.., H]
-    log_num_seeds: torch.Tensor  # [..]: -log(#flank positions)
-    cfg_fw_row: torch.Tensor     # [..] fw row of hap position n-2
-    cfg_rev_row: torch.Tensor    # [..] rev row of rev position n-2
 
 
 def expand_quals(quals: torch.Tensor, dtype: torch.dtype):

@@ -14,7 +14,9 @@ to run, and float64 equals the host's bit for bit).
 `extract_genotypes` are copies of the numpy functions of
 hipstr_tpu/ops/posteriors.py (reference src/genotyper.cpp:20-251) that the
 host genotyper, the VCF records and the stutter EM call, without the JAX
-branches: `xp` is numpy.
+branches: `xp` is numpy.  The module imports no torch: the pool's host
+workers call the numpy functions, and the torch functions import it (and
+the kernels) when they run.
 """
 
 from __future__ import annotations
@@ -24,9 +26,6 @@ import math
 from typing import NamedTuple
 
 import numpy as np
-import torch
-
-from .. import kernels
 
 NEG = -1.0e30
 LOG_ONE_HALF = math.log(0.5)
@@ -42,6 +41,7 @@ def batched_pool_posteriors(LL, pm: dict, Sm: int, dtype):
     weights/log_p1/log_p2 [G, R], col_index [G, H], n_alleles [G],
     haploid [G].  Padded reads carry weight 0; alleles >= n_alleles[g] are
     masked NEG."""
+    import torch
     G, P, H = LL.shape
     dev = LL.device
     LL = LL.to(dtype)
@@ -112,6 +112,7 @@ def sample_runs(sample, weights, Sm: int):
     read indices stably sorted by sample, and where each sample's run
     starts in that order and how many reads it holds.  Reads of weight 0
     sort past the last sample and belong to no run."""
+    import torch
     G, R = sample.shape
     key = torch.where(weights != 0, sample.long(), Sm)
     order = torch.sort(key, dim=1, stable=True).indices
@@ -125,6 +126,7 @@ def sample_runs(sample, weights, Sm: int):
 def sample_sums_plain(contrib, order, start, count):
     """The plain PyTorch version of csrc/sample_sum.cu: pass k adds the
     k-th read of every sample's run to that sample's sums."""
+    import torch
     G, R, C = contrib.shape
     Sm = start.shape[1]
     out = torch.zeros((G, Sm, C), dtype=contrib.dtype, device=contrib.device)
@@ -138,6 +140,9 @@ def sample_sums_plain(contrib, order, start, count):
 
 def sample_sum_kernel(contrib, order, start, count):
     """Launch csrc/sample_sum.cu on CUDA tensors: [G, Sm, C]."""
+    import torch
+
+    from .. import kernels
     G, R, C = contrib.shape
     Sm = start.shape[1]
     dev, dtype = contrib.device, contrib.dtype

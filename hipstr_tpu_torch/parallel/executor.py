@@ -49,6 +49,7 @@ from ..ops.hmm2 import batched_forward
 from ..ops.posteriors import batched_pool_posteriors
 from ..pipeline.hap_aligner import locus_to_torch, prepare_locus, stack_arrays
 from ..pipeline.vcf_record import build_vcf_record
+from .pool_worker import em_problem
 
 
 def _leaf_shapes(x) -> tuple:
@@ -231,21 +232,6 @@ def solve_em(problems: List[EMProblem], opts, device: torch.device,
     for n in out["iters"].cpu().tolist():
         stats.iter_hist[n] = stats.iter_hist.get(n, 0) + 1
     return params, conv
-
-
-def em_problem(pipeline, region, chrom_seq: str):
-    """Stage 1 of a locus whose stutter model the device EM learns:
-    (prepared reads, EMProblem), or None when the locus stops here (its
-    counter updated)."""
-    prep = pipeline.prepare_reads(region, chrom_seq)
-    if prep is None:
-        return None
-    with pipeline.timer.time("Stutter estimation"):
-        inputs = pipeline.stutter_em_inputs(prep.alns_by_rg, prep.log_p1s,
-                                            prep.log_p2s, region)
-    if inputs is None:
-        return None
-    return prep, EMProblem.build(prep.haploid, region.period, *inputs)
 
 
 FAILED = object()

@@ -10,11 +10,13 @@ splits the program along the host/device boundary instead:
     problem), haplotype generation, pooling, the adaptive allele loop,
     ML-trace retracing and VCF record assembly (reference:
     src/bam_processor.cpp:173-474, src/genotyper_bam_processor.cpp:161-289,
-    src/seq_stutter_genotyper.cpp:603-671), each on its own core.  They
-    never touch the card: `CUDA_VISIBLE_DEVICES` is empty before any CUDA
-    call, and each reports at the end that CUDA stayed uninitialised,
-    and how many rounds' genotype posteriors it computed itself (those of
-    dispatches the parent did not fuse them into).
+    src/seq_stutter_genotyper.cpp:603-671), each on its own core
+    (parallel/pool_worker.worker_main).  They never touch the card and
+    never import torch: each reports at the end whether torch got loaded
+    all the same (`last_run_stats["workers_with_torch"]` counts those
+    that did) and whether CUDA did, its anonymous memory, and how many
+    rounds' genotype posteriors it computed itself (those of dispatches
+    the parent did not fuse them into).
   * the *parent* owns the cards and every dispatch: the same shape-grouped
     batched alignments as the in-process executor (parallel/executor.py),
     each sharded over the same devices, and, without a stutter model on
@@ -60,9 +62,7 @@ raised in the main loop), and the other workers are terminated.
 from __future__ import annotations
 
 import multiprocessing as mp
-import os
 import queue
-import sys
 import threading
 import time
 from dataclasses import fields
@@ -71,11 +71,8 @@ from typing import Dict, List, Optional
 from ..io.regions import read_regions
 from .executor import (BatchedAligner, EMStats, LocusWorkItem, close_outputs,
                        device_em_enabled, device_post_enabled,
-                       dispatch_devices, em_problem, open_vcf, solve_em,
-                       _fetch)
-
-# seconds between a worker's timer hand-overs
-TIMERS_EVERY_S = 1.0
+                       dispatch_devices, open_vcf, solve_em, _fetch)
+from .pool_worker import worker_main
 
 
 def add_worker_timers(pipeline, totals: Dict[str, float]) -> None:
@@ -83,236 +80,6 @@ def add_worker_timers(pipeline, totals: Dict[str, float]) -> None:
     "<name> (workers)"."""
     for name, secs in totals.items():
         pipeline.timer.add_time(f"{name} (workers)", secs)
-
-
-# --------------------------------------------------------------- worker side
-
-
-def _worker_main(conn, spec: dict) -> None:
-    # the parent owns the card: hide it before anything can initialise CUDA
-    os.environ["CUDA_VISIBLE_DEVICES"] = ""
-    # one native-trace thread and one torch thread per worker: the pool
-    # already occupies the cores
-    os.environ.setdefault("HIPSTR_TRACE_THREADS", "1")
-    import torch
-    torch.set_num_threads(1)
-
-    from ..models.stutter import StutterModel
-    from ..pipeline.hap_aligner import prepare_locus
-    from ..pipeline.processor import GenotyperPipeline, Logger
-    from ..pipeline.vcf_record import build_vcf_record
-
-    opts = spec["opts"]
-    want_viz = bool(opts.viz_out)
-    opts.viz_out = None              # parent owns the real viz stream
-    if want_viz:
-        opts.output.viz_out = True
-    pipeline = GenotyperPipeline(spec["bam_paths"], spec["fasta_path"], opts,
-                                 Logger(quiet=True),
-                                 bam_samps=spec["bam_samps"],
-                                 bam_libs=spec["bam_libs"],
-                                 lib_field=spec["lib_field"])
-    dtype = opts.dtype
-    # the parent fuses the genotype posteriors into its dispatches on the
-    # card: workers install those instead of recomputing them on the host,
-    # so pooled and in-process runs take the same adaptive decisions
-    device_post = bool(spec["device_post"])
-    # stutter models learned on the parent's device in batched waves, as
-    # in-process: workers ship the EM problem up and resume on the reply
-    device_em = bool(spec["device_em"])
-    # idx -> (region, genotyper, adaptive generator, chrom_seq)
-    items: Dict[int, tuple] = {}
-    em_pending: Dict[int, tuple] = {}  # idx -> (region, prep, chrom_seq)
-    host_posteriors = 0   # rounds whose posteriors this worker computed
-    chrom = None
-    chrom_seq = None
-    timer = pipeline.timer
-
-    def send(msg) -> None:
-        with timer.time("Worker send"):
-            conn.send(msg)
-
-    def fail(idx, region, exc) -> None:
-        pipeline.counters.genotype_fail += 1
-        send(("log", f"ERROR at {region}: {exc!r}"))
-        send(("settled", idx, None, None))
-
-    def build_record(g, region, local_seq):
-        pipeline.counters.genotype_success += 1
-        with pipeline.timer.time("VCF record construction"):
-            chrom_, pos, text, stats = build_vcf_record(
-                g, pipeline.samples, opts.output)
-        viz = None
-        if want_viz and stats.viz_data is not None:
-            from ..pipeline.viz import visualize_alignments
-            alns_by_sample = {}
-            for s, entries in enumerate(stats.viz_data):
-                if entries:
-                    one = sorted((a for st, a in entries if st == 0),
-                                 key=lambda a: a.start)
-                    two = sorted((a for st, a in entries if st == 1),
-                                 key=lambda a: a.start)
-                    alns_by_sample[g.sample_names[s]] = one + two
-            html = visualize_alignments(
-                alns_by_sample, stats.sample_gb, local_seq,
-                region.chrom, region.start, region.stop)
-            viz = (region.chrom, region.start + 1, region.stop, html)
-        return (chrom_, pos, text), viz
-
-    def pack(g):
-        with pipeline.timer.time("Locus packing"):
-            seqs, quals, seeds = g.pool_inputs()
-            if not seqs:
-                return None
-            return prepare_locus(
-                g.align_haplotype(), seqs, quals, seeds, dtype,
-                post_meta=g.posterior_meta() if device_post else None,
-                read_cache=g.__dict__.setdefault("_read_pack_cache", {}))
-
-    def stage(idx, region, g, local_seq):
-        packed = pack(g)
-        if packed is None:
-            pipeline.counters.genotype_fail += 1
-            send(("settled", idx, None, None))
-            return
-        items[idx] = (region, g, None, local_seq)
-        send(("ready", idx, *packed))
-
-    def do_prep(idx, region):
-        nonlocal chrom, chrom_seq
-        if region.stop - region.start > opts.max_str_len:
-            pipeline.counters.too_long += 1
-            send(("settled", idx, None, None))
-            return
-        if region.chrom != chrom:
-            chrom = region.chrom
-            chrom_seq = pipeline.fasta.get_sequence(chrom)
-        try:
-            if device_em:
-                staged = em_problem(pipeline, region, chrom_seq)
-                if staged is None:
-                    send(("settled", idx, None, None))
-                    return
-                prep, prob = staged
-                em_pending[idx] = (region, prep, chrom_seq)
-                send(("em", idx, prob))
-                return
-            g = pipeline.prepare_locus_genotyper(region, chrom_seq)
-            if g is None:
-                send(("settled", idx, None, None))
-                return
-            stage(idx, region, g, chrom_seq)
-        except Exception as exc:  # skip-and-continue, like the reference
-            fail(idx, region, exc)
-
-    def do_emr(idx, params, converged):
-        """Resume a locus whose stutter model the parent learned
-        (run_batched.solve_staged_em parity)."""
-        region, prep, local_seq = em_pending.pop(idx)
-        try:
-            if not converged:
-                pipeline.counters.em_fail += 1
-                send(("log", f"Stutter EM failed for {region}"))
-                send(("settled", idx, None, None))
-                return
-            model = StutterModel(*params, region.period)
-            pipeline.register_learned_model(region, model)
-            if opts.skip_genotyping:
-                send(("settled", idx, None, None))
-                return
-            g = pipeline.finish_prepare(prep, region, local_seq, model)
-            if g is None:
-                send(("settled", idx, None, None))
-                return
-            stage(idx, region, g, local_seq)
-        except Exception as exc:
-            fail(idx, region, exc)
-
-    def do_ll(idx, LL, post=None, totals=None):
-        nonlocal host_posteriors
-        region, g, gen, local_seq = items[idx]
-        try:
-            with timer.time("LL install"):
-                g.set_pool_lls(LL)
-            with timer.time("Genotyping (adaptive)"):
-                if post is not None:
-                    S, A = g.num_samples, g.num_alleles
-                    g.install_posteriors(post[:S, :A, :A], totals[:S])
-                else:
-                    g.calc_log_sample_posteriors()
-                    host_posteriors += 1
-                if gen is None:
-                    gen = g.adaptive_steps(opts.max_haps,
-                                           opts.max_hap_flanks,
-                                           opts.min_flank_freq)
-                    items[idx] = (region, g, gen, local_seq)
-                try:
-                    next(gen)
-                except StopIteration as stop:
-                    del items[idx]
-                    # sent inside "Genotyping (adaptive)", which
-                    # adaptive_ms_per_locus reads; so not in "Worker send"
-                    if stop.value:
-                        rec, viz = build_record(g, region, local_seq)
-                        conn.send(("settled", idx, rec, viz))
-                    else:
-                        pipeline.counters.genotype_fail += 1
-                        conn.send(("settled", idx, None, None))
-                    return
-            packed = pack(g)
-            if packed is None:
-                raise RuntimeError("no reads to realign")
-            send(("ready", idx, *packed))
-        except Exception as exc:
-            items.pop(idx, None)
-            fail(idx, region, exc)
-
-    handed: Dict[str, float] = {}     # totals already handed over
-    t_handed = time.perf_counter()    # the first recv's start
-    covered_handed = 0.0
-
-    def hand_over() -> Dict[str, float]:
-        """What the timers accrued since the last hand-over, with the
-        interval's "Worker wall" and "Worker other" (the wall that no
-        outermost timer, "Worker idle" included, covered)."""
-        nonlocal t_handed, covered_handed
-        now = time.perf_counter()
-        out = {k: v - handed.get(k, 0.0) for k, v in timer.totals.items()
-               if v != handed.get(k, 0.0)}
-        handed.update(timer.totals)
-        out["Worker wall"] = now - t_handed
-        out["Worker other"] = out["Worker wall"] - (timer.covered
-                                                    - covered_handed)
-        t_handed, covered_handed = now, timer.covered
-        return out
-
-    while True:
-        with timer.time("Worker idle"):
-            msg = conn.recv()
-        tag = msg[0]
-        if tag == "prep":
-            do_prep(msg[1], msg[2])
-        elif tag == "ll":
-            do_ll(msg[1], *msg[2:])
-        elif tag == "emr":
-            do_emr(msg[1], msg[2], msg[3])
-        elif tag == "fin":
-            report = dict(
-                pid=os.getpid(),
-                cuda_initialized=bool(torch.cuda.is_initialized()),
-                host_posteriors=host_posteriors,
-                jax_loaded=sorted(
-                    m for m, mod in sys.modules.items() if mod is not None
-                    and m.split(".")[0] in ("jax", "hipstr_tpu")))
-            send(("fin", pipeline.counters, pipeline._stutter_out,
-                  hand_over(), report))
-            conn.close()
-            return
-        if time.perf_counter() - t_handed >= TIMERS_EVERY_S:
-            send(("timers", hand_over()))
-
-
-# --------------------------------------------------------------- parent side
 
 
 class _ReadyItem(LocusWorkItem):
@@ -553,7 +320,7 @@ def run_pooled(pipeline, regions_bed: str, out_vcf: Optional[str], device,
         with pipeline.timer.time("Worker spawn"):
             for _ in range(n_workers):
                 parent_conn, child_conn = ctx.Pipe()
-                proc = ctx.Process(target=_worker_main,
+                proc = ctx.Process(target=worker_main,
                                    args=(child_conn, worker_spec),
                                    daemon=True)
                 proc.start()
@@ -638,7 +405,8 @@ def run_pooled(pipeline, regions_bed: str, out_vcf: Optional[str], device,
         for t in fetchers + readers:
             if t.is_alive():
                 t.join(timeout=10)
-    bad =[r for r in reports if r["cuda_initialized"] or r["jax_loaded"]]
+    bad = [r for r in reports if r.get("cuda_initialized")
+           or r["jax_loaded"]]
     if bad:
         raise RuntimeError(f"a worker initialised CUDA or loaded JAX: {bad}")
 
@@ -650,5 +418,6 @@ def run_pooled(pipeline, regions_bed: str, out_vcf: Optional[str], device,
         dispatches=int(aligner.dispatches),
         card_shards=int(aligner.card_shards), cards=len(set(devices)),
         shards_per_dispatch=len(devices), workers=reports,
+        workers_with_torch=sum(bool(r.get("torch_loaded")) for r in reports),
         **em_stats.as_dict())
     return pipeline.counters

@@ -43,8 +43,27 @@ from ..models.stutter import StutterModel
 from ..ops import posteriors as post_ops
 from ..ops.em import EMStutterGenotyper
 from ..utils.mathops import LOG_ONE_HALF
-from .hap_aligner import compute_hap_log_likelihoods
 from .special import allele_bias_pvalue, fisher_strand_pvalue
+
+
+def _aligner():
+    """The in-process rounds' aligner: pipeline/hap_aligner's
+    compute_hap_log_likelihoods, bound to this module's name of it on first
+    use, so that torch is imported only where a locus is aligned in the
+    process (never in a pool's host worker, which imports this module).
+    What that name is bound to then (a wrapper, say) is what runs."""
+    names = globals()
+    if "compute_hap_log_likelihoods" not in names:
+        from .hap_aligner import compute_hap_log_likelihoods
+        names["compute_hap_log_likelihoods"] = compute_hap_log_likelihoods
+    return names["compute_hap_log_likelihoods"]
+
+
+def __getattr__(name: str):
+    # `genotyper.compute_hap_log_likelihoods` before the first alignment
+    if name == "compute_hap_log_likelihoods":
+        return _aligner()
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 MIN_SEED_DIST = 5
 TOLERANCE = 1e-10
@@ -808,8 +827,7 @@ class SeqStutterGenotyper:
         hap = self.align_haplotype()
         seqs, quals, seeds = self.pool_inputs()
         if seqs:
-            LL = compute_hap_log_likelihoods(hap, seqs, quals,
-                                             seeds, dtype=self.dtype)
+            LL = _aligner()(hap, seqs, quals, seeds, dtype=self.dtype)
         else:
             LL = np.zeros((0, hap.num_combs))
         self.set_pool_lls(LL)

@@ -12,23 +12,32 @@ second between two switches goes to the state that was open, so the states
 partition the loop's wall time.  While a torch profiler is active in the
 process, each phase and each state is also a `record_function` range of
 the same name, so a trace shows the host's phases on the same timeline as
-the device's work; with no profiler that costs one flag read.  All times
+the device's work; with no profiler that costs one flag read.  The module
+imports no torch itself: it reads the profiler's flag only where torch is
+already loaded.  All times
 come from `time.perf_counter()`, the monotonic clock every process of a
 run shares.
 """
 
 from __future__ import annotations
 
+import sys
 import time
 from contextlib import contextmanager
 from typing import Dict, Optional
 
-from torch.autograd import profiler as _profiler
+_profiler = None      # torch.autograd.profiler, once torch is loaded
 
 
 def _open_range(name: str):
     """A torch.profiler range named `name`, entered, while a profiler is
-    active in this process; else None."""
+    active in this process; else None.  A process that has not loaded
+    torch (a pool's host worker) has no profiler, and this loads none."""
+    global _profiler
+    if _profiler is None:
+        if "torch" not in sys.modules:
+            return None
+        from torch.autograd import profiler as _profiler
     if not _profiler._is_profiler_enabled:
         return None
     rng = _profiler.record_function(name)

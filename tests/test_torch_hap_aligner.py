@@ -12,6 +12,7 @@ from hipstr_tpu.models.stutter import StutterModel
 from hipstr_tpu.pipeline import hap_aligner as jax_aligner
 from hipstr_tpu.pipeline.genotyper import calc_seed_base
 from hipstr_tpu.utils.simulate import simulate_locus
+from hipstr_tpu_torch.ops import hmm as port_hmm
 from hipstr_tpu_torch.pipeline import hap_aligner as port_aligner
 from test_torch_slice import one_torch_thread  # noqa: F401
 
@@ -84,7 +85,10 @@ def test_locus_to_torch_reads_fields_by_name():
     arrays, _ = jax_aligner.prepare_locus(hap, seqs, quals, seeds, "float64")
     t = port_aligner.locus_to_torch(arrays, torch.device("cpu"),
                                     torch.float32)
-    assert type(t[2]).__module__ == "hipstr_tpu_torch.ops.hmm"
+    # the port's own container (ops/hmm_containers.py, as ops/hmm.py
+    # re-exports it), not the JAX package's
+    assert type(t[2]) is port_hmm.HapMeta
+    assert type(t[2]).__module__ == "hipstr_tpu_torch.ops.hmm_containers"
     for src, dst in zip(arrays[:5], t[:5]):
         for f in dst._fields:
             a, b = np.asarray(getattr(src, f)), getattr(dst, f)

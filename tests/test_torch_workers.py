@@ -4,7 +4,8 @@
   run_batched, in float64 on the CPU: with a fixed model, with the fused
   posteriors, and with the device EM forced on in the parent (the flag
   reaches the workers through their spec);
-* every worker reports CUDA uninitialised and no JAX loaded;
+* every worker reports torch (so CUDA) never loaded, its anonymous
+  memory, and no JAX loaded;
 * the CLI's pooled run (`--host-workers 2`, host EM in the workers) writes
   the EM anchor tests/data/torch_port_ref_em_f64.vcf;
 * a worker that dies ends the run with an error, not a hang;
@@ -71,7 +72,8 @@ c = workers.run_pooled(pool, f"{d}/regions.bed", f"{d}/{mode}_pool.vcf", cpu,
                        spec, n_workers=2, batch_size=4)
 print(json.dumps(dict(success=c.genotype_success, fail=c.genotype_fail,
                       em_waves=pool.last_run_stats["em_waves"],
-                      workers=pool.last_run_stats["workers"])))
+                      workers=pool.last_run_stats["workers"],
+                      with_torch=pool.last_run_stats["workers_with_torch"])))
 """
 
 
@@ -106,7 +108,9 @@ def test_pool_equals_in_process(pool_sim, mode):
     assert (res["em_waves"] > 0) == (mode == "device-em")
     assert len(res["workers"]) == 2
     for report in res["workers"]:
-        assert not report["cuda_initialized"] and not report["jax_loaded"]
+        assert not report["torch_loaded"] and not report["jax_loaded"]
+        assert "cuda_initialized" not in report and report["anon_mib"] > 0
+    assert res["with_torch"] == 0
     # the workers compute a round's posteriors only where the parent did
     # not fuse them: every round without fused posteriors, none with them
     # (these loci's rounds are all at H_pad <= 32)
