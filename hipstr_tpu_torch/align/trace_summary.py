@@ -167,6 +167,16 @@ def compute_batch_columnar(haplotype: Haplotype, jobs,
     TraceStore keeps the columns and builds objects lazily.  Returns the
     native `out` dict (rows with rc != 0 must be re-run through the object
     path) or None when the native entry is unavailable."""
+    run = batch_columnar_runner(haplotype, jobs, hap_info, n_threads)
+    return None if run is None else run()
+
+
+def batch_columnar_runner(haplotype: Haplotype, jobs,
+                          hap_info: HapAlignInfo, n_threads: int = 0):
+    """compute_batch_columnar in two halves: the jobs are marshalled here,
+    and the callable returned runs the native batch (the GIL released) and
+    returns its `out` dict or None; None when the native entry is
+    unavailable."""
     from .. import native as _native
     if not jobs:
         return None
@@ -174,7 +184,7 @@ def compute_batch_columnar(haplotype: Haplotype, jobs,
                                              "hmm_trace_summary_batch")
     if not lib_ok:
         return None
-    return _native.hmm_trace_summary_batch_fast(
+    return _native.hmm_trace_summary_batch_runner(
         haplotype, jobs, hap_info, haplotype.blocks[0].start,
         MIN_SNP_LOG_PROB_CORRECT, TRACE_LL_TOL,
         n_threads or trace_threads())
@@ -310,6 +320,18 @@ def trace_summaries(haplotype: Haplotype, jobs, hap_info: HapAlignInfo,
     return res
 
 
+def _narrowed(out: dict) -> dict:
+    """A native batch's `out` with its cigar and alignment columns cut to
+    its widest row: the batch sizes them for the longest alignment
+    possible, ~1.2 KB a trace that a TraceStore would keep while its locus
+    lives.  Rows are read only up to their own `n_cigar` / `aln_len`."""
+    nc = int(out["n_cigar"].max(initial=0))
+    al = int(out["aln_len"].max(initial=0))
+    return dict(out, cigar_ops=out["cigar_ops"][:, :nc].copy(),
+                cigar_num=out["cigar_num"][:, :nc].copy(),
+                aln_pool=out["aln_pool"][:, :al].copy())
+
+
 class TraceStore:
     """Columnar store of one locus's (pool, haplotype) ML-trace summaries.
 
@@ -397,7 +419,7 @@ class TraceStore:
         self.stut[sl] = out["stut_size"][:m, :nb]
         self.svalid[sl] = out["stut_valid"][:m, :nb].astype(bool)
         bidx = len(self._batches)
-        self._batches.append((out, [j[1] for j in jobs]))
+        self._batches.append((_narrowed(out), [j[1] for j in jobs]))
         src = self._src
         for i in range(m):
             src.append((bidx, i))

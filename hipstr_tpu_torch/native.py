@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import fcntl
+import functools
 import hashlib
 import os
 import subprocess
@@ -1592,14 +1593,19 @@ def cram_decode_container_native(body: bytes, n_blocks: int, version: int,
     return None
 
 
-def hmm_trace_summary_batch_fast(haplotype, jobs, hap_info, hap_start: int,
-                                 min_snp_lpc: float, tol: float,
-                                 n_threads: int = 1):
+def hmm_trace_summary_batch_runner(haplotype, jobs, hap_info, hap_start: int,
+                                   min_snp_lpc: float, tol: float,
+                                   n_threads: int = 1):
     """Single-pass marshalling for the trace-summary batch: per-instance
     pointer blocks (fill/walk structs, seed metadata) and per-pool data
     pointers are cached, so each job costs a handful of int stores into
     numpy pointer tables instead of rebuilding ctypes argument arrays
-    (was ~25us/job of host python at deep coverage).  Results identical to
+    (was ~25us/job of host python at deep coverage).  Returns a callable
+    that runs the native batch (the GIL released) and returns its `out`
+    dict, or None where the native side refused the batch; None where the
+    native entry is missing or there are no jobs.  Marshalling and the
+    batch's output arrays stay on the calling thread, so the call alone
+    may run on another.  Results identical to
     hmm_trace_summary_batch_native."""
     lib = _load()
     if lib is None or not hasattr(lib, "hmm_trace_summary_batch"):
@@ -1694,7 +1700,7 @@ def hmm_trace_summary_batch_fast(haplotype, jobs, hap_info, hap_start: int,
         aln_pool=np.empty((n, cig_stride), dtype=np.uint8),
         aln_len=np.zeros(n, dtype=np.int32),
     )
-    rc = lib.hmm_trace_summary_batch(
+    args = (
         n, pt[0].ctypes.data, Ls.ctypes.data, pt[1].ctypes.data,
         pt[2].ctypes.data, seeds.ctypes.data,
         pt[3].ctypes.data, pt[4].ctypes.data, pt[5].ctypes.data,
@@ -1716,7 +1722,14 @@ def hmm_trace_summary_batch_fast(haplotype, jobs, hap_info, hap_start: int,
         cig_stride, out["cigar_ops"].ctypes.data,
         out["cigar_num"].ctypes.data, out["n_cigar"].ctypes.data,
         out["aln_pool"].ctypes.data, out["aln_len"].ctypes.data)
-    del keep
-    if rc != 0:
-        return None
-    return out
+    return functools.partial(
+        _run_summary_batch, lib.hmm_trace_summary_batch, args, out,
+        (keep, ptab, Ls, seeds, nmids, slps, firsts, lasts, hap_lens,
+         hap_starts))
+
+
+def _run_summary_batch(fn, args, out, buffers):
+    """Run a marshalled trace-summary batch: `out`, or None where the
+    native side refused it.  `buffers` holds every array the pointer
+    arguments address until the call has run."""
+    return out if fn(*args) == 0 else None

@@ -16,13 +16,34 @@ start-up time on it; its "fin" report says whether torch got loaded all
 the same (`torch_loaded`, with `cuda_initialized` where it did) and gives
 its anonymous memory then (`anon_mib`).  The messages, and the timers a
 worker hands over, are set out in parallel/workers.py.
+
+A worker overlaps its loci's native ML traces with its own Python, as the
+in-process executor does (parallel/executor.run_batched): after each task
+it reads every message its pipe already holds into a queue, which it
+works through in arrival order.  It keeps its one trace thread fed:
+before each task, if that thread has no batch left to run, the first
+queued "ll" not yet installed is installed (LLs and posteriors) and its
+round's traces are marshalled and handed to the thread
+(SeqStutterGenotyper.prefetch_traces), which runs the native batch with
+the GIL released; the locus collects them when its turn comes.  A locus
+whose adaptive loop ends starts its record's traces the same way and
+builds the record after one more task.  Loci are installed only as fast
+as the thread traces them, and records wait one task, since a locus
+installed or finished holds ~1-2 MiB until its turn: installing every
+queued reply at once, or queueing records behind the whole queue, costs
+several times that in memory for no more overlap.  The "fin" report
+counts the trace jobs (pool, haplotype) prefetched, traced on the main
+thread and discarded stale (`trace_jobs_*`); the traces' seconds, on
+either thread, are handed over as the span "ML traces".
 """
 
 from __future__ import annotations
 
+import concurrent.futures as cf
 import os
 import sys
 import time
+from collections import deque
 from typing import Dict, Optional
 
 from ..ops.em_problem import EMProblem
@@ -69,11 +90,12 @@ def worker_main(conn, spec: dict) -> None:
     parent's messages until "fin", then report (module docstring)."""
     # the parent owns the card: hide it, should anything load CUDA
     os.environ["CUDA_VISIBLE_DEVICES"] = ""
-    # one native-trace thread per worker: the pool already occupies the
+    # one native-trace thread per batch: the pool already occupies the
     # cores
     os.environ.setdefault("HIPSTR_TRACE_THREADS", "1")
 
     from ..models.stutter import StutterModel
+    from ..pipeline.genotyper import TraceTally
     from ..pipeline.locus_pack import prepare_locus
     from ..pipeline.processor import GenotyperPipeline, Logger
     from ..pipeline.vcf_record import build_vcf_record
@@ -103,6 +125,16 @@ def worker_main(conn, spec: dict) -> None:
     chrom = None
     chrom_seq = None
     timer = pipeline.timer
+    # the tasks in arrival order: the parent's messages, and ("record",
+    # idx) for a finished locus
+    tasks: deque = deque()
+    # idx -> installed, of each "ll" installed ahead of its turn
+    ahead: Dict[int, bool] = {}
+    tracing = None    # the Future of the last batch sent to the thread
+    # the native trace batches run on one thread of their own (the batch
+    # releases the GIL) while the main thread steps the loci ahead
+    trace_pool = cf.ThreadPoolExecutor(max_workers=1)
+    tally = TraceTally()
 
     def send(msg) -> None:
         with timer.time("Worker send"):
@@ -151,6 +183,7 @@ def worker_main(conn, spec: dict) -> None:
             pipeline.counters.genotype_fail += 1
             send(("settled", idx, None, None))
             return
+        g.trace_tally = tally
         items[idx] = (region, g, None, local_seq)
         send(("ready", idx, *packed))
 
@@ -204,9 +237,22 @@ def worker_main(conn, spec: dict) -> None:
         except Exception as exc:
             fail(idx, region, exc)
 
-    def do_ll(idx, LL, post=None, totals=None):
+    def prefetch(g) -> None:
+        """Start the traces the locus's current posteriors need on the
+        trace thread, a batch of one native thread: those of each read's
+        ML haplotype alone, as the next step traces them (the record's
+        differ only in reads its strand tolerance weighs alike; the
+        superset would double a worker's trace work)."""
+        nonlocal tracing
+        fut = g.prefetch_traces(trace_pool, n_threads=0, superset=False)
+        if fut is not None:
+            tracing = fut
+
+    def install(idx, LL, post=None, totals=None) -> bool:
+        """Install a round's LLs and posteriors and start its traces on
+        the trace thread; False if the locus failed."""
         nonlocal host_posteriors
-        region, g, gen, local_seq = items[idx]
+        region, g, _, _ = items[idx]
         try:
             with timer.time("LL install"):
                 g.set_pool_lls(LL)
@@ -217,6 +263,19 @@ def worker_main(conn, spec: dict) -> None:
                 else:
                     g.calc_log_sample_posteriors()
                     host_posteriors += 1
+                prefetch(g)
+            return True
+        except Exception as exc:
+            del items[idx]
+            fail(idx, region, exc)
+            return False
+
+    def do_step(idx):
+        """The next adaptive round of an installed locus: a realignment
+        to ask for, or the end of its loop."""
+        region, g, gen, local_seq = items[idx]
+        try:
+            with timer.time("Genotyping (adaptive)"):
                 if gen is None:
                     gen = g.adaptive_steps(opts.max_haps,
                                            opts.max_hap_flanks,
@@ -225,15 +284,14 @@ def worker_main(conn, spec: dict) -> None:
                 try:
                     next(gen)
                 except StopIteration as stop:
-                    del items[idx]
-                    # sent inside "Genotyping (adaptive)", which
-                    # adaptive_ms_per_locus reads; so not in "Worker send"
                     if stop.value:
-                        rec, viz = build_record(g, region, local_seq)
-                        conn.send(("settled", idx, rec, viz))
-                    else:
-                        pipeline.counters.genotype_fail += 1
-                        conn.send(("settled", idx, None, None))
+                        # the record's traces run while the next task does
+                        prefetch(g)
+                        tasks.insert(min(1, len(tasks)), ("record", idx))
+                        return
+                    del items[idx]
+                    pipeline.counters.genotype_fail += 1
+                    conn.send(("settled", idx, None, None))
                     return
             packed = pack(g)
             if packed is None:
@@ -243,15 +301,40 @@ def worker_main(conn, spec: dict) -> None:
             items.pop(idx, None)
             fail(idx, region, exc)
 
+    def do_record(idx):
+        region, g, _, local_seq = items.pop(idx)
+        try:
+            with timer.time("Genotyping (adaptive)"):
+                rec, viz = build_record(g, region, local_seq)
+                # sent inside "Genotyping (adaptive)", which
+                # adaptive_ms_per_locus reads; so not in "Worker send"
+                conn.send(("settled", idx, rec, viz))
+        except Exception as exc:
+            fail(idx, region, exc)
+
+    def install_ahead() -> None:
+        """While the trace thread has nothing to run, install the first
+        queued "ll" not yet installed, so that its traces run while the
+        main thread works on the task in hand."""
+        if tracing is not None and not tracing.done():
+            return
+        for task in tasks:
+            if task[0] == "ll" and task[1] not in ahead:
+                ahead[task[1]] = install(task[1], *task[2:])
+                return
+
     handed: Dict[str, float] = {}     # totals already handed over
     t_handed = time.perf_counter()    # the first recv's start
     covered_handed = 0.0
+    traced_handed = 0.0
 
-    def hand_over() -> Dict[str, float]:
-        """What the timers accrued since the last hand-over, with the
-        interval's "Worker wall" and "Worker other" (the wall that no
-        outermost timer, "Worker idle" included, covered)."""
-        nonlocal t_handed, covered_handed
+    def hand_over():
+        """(timers, spans): what the timers accrued since the last
+        hand-over, with the interval's "Worker wall" and "Worker other"
+        (the wall that no outermost timer, "Worker idle" included,
+        covered); and the seconds of the native traces in that time, on
+        either thread ("ML traces": no part of the wall's partition)."""
+        nonlocal t_handed, covered_handed, traced_handed
         now = time.perf_counter()
         out = {k: v - handed.get(k, 0.0) for k, v in timer.totals.items()
                if v != handed.get(k, 0.0)}
@@ -260,19 +343,35 @@ def worker_main(conn, spec: dict) -> None:
         out["Worker other"] = out["Worker wall"] - (timer.covered
                                                     - covered_handed)
         t_handed, covered_handed = now, timer.covered
-        return out
+        traced = tally.seconds
+        spans = {"ML traces": traced - traced_handed} \
+            if traced != traced_handed else {}
+        traced_handed = traced
+        return out, spans
 
     while True:
-        with timer.time("Worker idle"):
-            msg = conn.recv()
-        tag = msg[0]
+        if not tasks:
+            with timer.time("Worker idle"):
+                tasks.append(conn.recv())
+        while conn.poll(0):
+            tasks.append(conn.recv())
+        task = tasks.popleft()
+        tag = task[0]
+        if tag == "ll":
+            idx = task[1]
+            ok = ahead.pop(idx) if idx in ahead else install(*task[1:])
+        install_ahead()
         if tag == "prep":
-            do_prep(msg[1], msg[2])
+            do_prep(task[1], task[2])
         elif tag == "ll":
-            do_ll(msg[1], *msg[2:])
+            if ok:
+                do_step(idx)
+        elif tag == "record":
+            do_record(task[1])
         elif tag == "emr":
-            do_emr(msg[1], msg[2], msg[3])
+            do_emr(task[1], task[2], task[3])
         elif tag == "fin":
+            trace_pool.shutdown(wait=True)
             torch = sys.modules.get("torch")
             report = dict(
                 pid=os.getpid(),
@@ -281,12 +380,13 @@ def worker_main(conn, spec: dict) -> None:
                 host_posteriors=host_posteriors,
                 jax_loaded=sorted(
                     m for m, mod in sys.modules.items() if mod is not None
-                    and m.split(".")[0] in ("jax", "hipstr_tpu")))
+                    and m.split(".")[0] in ("jax", "hipstr_tpu")),
+                **{f"trace_jobs_{k}": n for k, n in tally.jobs.items()})
             if torch is not None:
                 report["cuda_initialized"] = bool(torch.cuda.is_initialized())
             send(("fin", pipeline.counters, pipeline._stutter_out,
-                  hand_over(), report))
+                  *hand_over(), report))
             conn.close()
             return
         if time.perf_counter() - t_handed >= TIMERS_EVERY_S:
-            send(("timers", hand_over()))
+            send(("timers", *hand_over()))

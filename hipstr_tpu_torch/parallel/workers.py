@@ -27,8 +27,8 @@ Messages (pickled over pipes):
                     ("emr", idx, params, converged), ("fin",)
   worker -> parent: ("ready", idx, arrays, statics), ("em", idx, EMProblem),
                     ("settled", idx, record, viz), ("log", text),
-                    ("timers", totals), ("fin", counters, stutter models,
-                    totals, report)
+                    ("timers", totals, spans), ("fin", counters, stutter
+                    models, totals, spans, report)
 They carry the packed int8/uint8 tensors, so a locus costs a few KB.  VCF
 records come back tagged with their BED index and enter the writer in BED
 order.  A worker hands its timer totals over about once a second
@@ -44,17 +44,20 @@ and "emr" replies), "Pool dispatch" (stacking, copies, launches),
 asleep, "Pool wait fill" (loci staged, no dispatch in flight), "Pool wait
 fetch" (a dispatch in flight) or "Pool wait idle" (neither); they sum to
 "Pool loop", and "Pool idle" is "Pool wait idle" + "Pool wait fetch".
-"Pool send" is mostly a wait too: a reply's write blocks while the
-worker's pipe is full, which it stays until the worker is done with the
-locus in hand.  A worker's "Worker wall" (first recv to "fin") is its
-leaf timers ("Read filtering", "SNP info extraction", "Stutter
-estimation", "Left alignment", "Genotyper build", "LL install",
+"Pool send" writes the replies; a write blocks only while the worker's
+pipe is full, and a worker empties its pipe after every task it runs
+(parallel/pool_worker.py).  A worker's "Worker wall" (first recv to
+"fin") is its leaf timers ("Read filtering", "SNP info extraction",
+"Stutter estimation", "Left alignment", "Genotyper build", "LL install",
 "Genotyping (adaptive)", "Locus packing", "Worker send": every send but
 the "settled" one that "Genotyping (adaptive)" holds), plus "Worker idle"
 (blocked on its pipe), plus "Worker other" (the rest).  "VCF record
 construction" is nested in "Genotyping (adaptive)" and counted in it.
-The parent reads each worker's pipe on a thread of its own, so
-neither side can block the other with a full pipe.  A device error ends
+Beside the timers a worker hands over its spans: "ML traces", the
+seconds of its native trace batches on either of its threads, which
+overlap its timers and are no part of the partition.  The parent reads
+each worker's pipe on a thread of its own, so neither side can block the
+other with a full pipe.  A device error ends
 the run; a worker that dies ends it too (its closed pipe's EOFError is
 raised in the main loop), and the other workers are terminated.
 """
@@ -79,6 +82,14 @@ def add_worker_timers(pipeline, totals: Dict[str, float]) -> None:
     """Add a worker's handed-over timer totals to the parent's, each under
     "<name> (workers)"."""
     for name, secs in totals.items():
+        pipeline.timer.add_time(f"{name} (workers)", secs)
+
+
+def add_worker_spans(pipeline, spans: Dict[str, float]) -> None:
+    """Add a worker's handed-over spans (seconds of a piece of work on any
+    of its threads, beside its timers' partition of its wall) to the
+    parent's timers, each under "<name> (workers)"."""
+    for name, secs in spans.items():
         pipeline.timer.add_time(f"{name} (workers)", secs)
 
 
@@ -202,6 +213,7 @@ def run_pooled(pipeline, regions_bed: str, out_vcf: Optional[str], device,
             pipeline.logger.log(msg[1])
         elif tag == "timers":
             add_worker_timers(pipeline, msg[1])
+            add_worker_spans(pipeline, msg[2])
         else:
             raise RuntimeError(f"worker {w} sent {tag!r}")
 
@@ -377,13 +389,14 @@ def run_pooled(pipeline, regions_bed: str, out_vcf: Optional[str], device,
             if msg[0] != "fin":
                 handle_msg(w, msg)
                 continue
-            _, counters, stutter_out, timer_totals, report = msg
+            _, counters, stutter_out, timer_totals, spans, report = msg
             for f in fields(counters):
                 setattr(pipeline.counters, f.name,
                         getattr(pipeline.counters, f.name)
                         + getattr(counters, f.name))
             pipeline._stutter_out.update(stutter_out)
             add_worker_timers(pipeline, timer_totals)
+            add_worker_spans(pipeline, spans)
             reports.append(report)
         for c in conns:
             c.close()

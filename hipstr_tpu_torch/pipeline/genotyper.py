@@ -1,7 +1,10 @@
 """Copy of hipstr_tpu/pipeline/genotyper.py, but for one repair: no
 trace of a locus runs beside its ML-trace prefetch (`prefetch_traces`
 waits for a stale one, `summary_stats_for` collects one in flight), since
-both fill the same unlocked native pointer caches.
+both fill the same unlocked native pointer caches.  Besides, a genotyper
+given a `TraceTally` counts its native trace batches' seconds and jobs
+there; `prefetch_traces` takes the batch's thread count and whether it
+traces the superset, and marshals the batch on the calling thread.
 
 Per-locus sequence-based stutter genotyping orchestration.
 
@@ -26,6 +29,8 @@ from __future__ import annotations
 
 import math
 import os
+import threading
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -35,7 +40,7 @@ from ..align.debruijn import MAX_KMER, MIN_KMER, MIN_PATH_WEIGHT, DebruijnGraph
 from ..align.hap_generator import HaplotypeGenerator
 from ..align.haplotype import HapBlock, Haplotype
 from ..align.retrace import HapAlignInfo
-from ..align.trace_summary import (TraceStore, compute_batch_columnar,
+from ..align.trace_summary import (TraceStore, batch_columnar_runner,
                                    summaries_via_objects)
 from ..io.regions import Region
 from ..models.base_quality import BaseQuality
@@ -44,6 +49,24 @@ from ..ops import posteriors as post_ops
 from ..ops.em import EMStutterGenotyper
 from ..utils.mathops import LOG_ONE_HALF
 from .special import allele_bias_pvalue, fisher_strand_pvalue
+
+
+class TraceTally:
+    """The native ML-trace batches of a process's genotypers, from any
+    thread: their seconds, and their (pool, haplotype) jobs by where they
+    ran ("prefetched": on a prefetch's thread; "main": synchronously, on
+    the thread that asked) and "discarded" (of a prefetch made stale by a
+    new haplotype)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.seconds = 0.0
+        self.jobs = dict(prefetched=0, main=0, discarded=0)
+
+    def add(self, kind: str, jobs: int, seconds: float = 0.0) -> None:
+        with self._lock:
+            self.jobs[kind] += jobs
+            self.seconds += seconds
 
 
 def _aligner():
@@ -279,6 +302,8 @@ class SeqStutterGenotyper:
         # columnar trace rows (TraceStore) + its (pool, hap) -> row key map;
         # created at the first _set_haplotype (block count is then known)
         self.trace_store: Optional[TraceStore] = None
+        # where the native trace batches are counted (TraceTally), if any
+        self.trace_tally: Optional[TraceTally] = None
         self.pool_seeds: Optional[np.ndarray] = None
         self.seed_positions: Optional[np.ndarray] = None
         self.pool_LLs: Optional[np.ndarray] = None  # [P, A] raw pool LLs
@@ -974,23 +999,48 @@ class SeqStutterGenotyper:
                 missing.append((int(srcs[f]), key))
         return best, missing
 
-    def _run_trace_batch(self, missing, n_threads: int = 0):
-        """Trace the missing (read, key) jobs; returns an uninstalled batch
-        payload for _install_trace_batch (columnar when the native library
-        is present, boxed objects otherwise)."""
+    def _trace_batch_runner(self, missing, n_threads: int = 0):
+        """Marshal the missing (read, key) jobs on this thread; returns a
+        callable that traces them (the native batch releases the GIL) and
+        returns an uninstalled batch payload for _install_trace_batch
+        (columnar when the native library is present, boxed objects
+        otherwise)."""
         jobs = []
         for i, key in missing:
             pooled = self.pooler.pooled_alns[key[0]]
             blw, blc = self._pool_logq(key[0])
             jobs.append((key[1], pooled, int(self.seed_positions[i]),
                          blw, blc))
-        out = compute_batch_columnar(self.haplotype, jobs, self.hap_info,
-                                     n_threads=n_threads)
-        if out is not None:
-            return ("cols", out, jobs)
-        return ("objs", summaries_via_objects(self.haplotype, jobs,
-                                              self.hap_info,
-                                              n_threads=n_threads), jobs)
+        native_run = batch_columnar_runner(self.haplotype, jobs,
+                                           self.hap_info, n_threads)
+
+        def run():
+            out = native_run() if native_run is not None else None
+            if out is not None:
+                return ("cols", out, jobs)
+            return ("objs", summaries_via_objects(self.haplotype, jobs,
+                                                  self.hap_info,
+                                                  n_threads=n_threads), jobs)
+        return run
+
+    def _run_trace_batch(self, missing, n_threads: int = 0):
+        """Trace the missing (read, key) jobs on this thread: the payload
+        of _trace_batch_runner."""
+        t0 = time.perf_counter()
+        run = self._trace_batch_runner(missing, n_threads)
+        return self._tallied_run(run, len(missing), "main",
+                                 time.perf_counter() - t0)
+
+    def _tallied_run(self, run, jobs: int, kind: str, marshal_s: float):
+        """run(), its seconds (with the `marshal_s` its marshalling took)
+        and `jobs` counted under `kind` in the genotyper's TraceTally, if
+        it has one."""
+        t0 = time.perf_counter()
+        res = run()
+        if self.trace_tally is not None:
+            self.trace_tally.add(kind, jobs,
+                                 marshal_s + time.perf_counter() - t0)
+        return res
 
     def _install_trace_batch(self, missing, res) -> None:
         keys = [key for _, key in missing]
@@ -1001,15 +1051,22 @@ class SeqStutterGenotyper:
         else:
             self.trace_store.add_objects(keys, payload)
 
-    def prefetch_traces(self, pool) -> None:
-        """Submit the current posteriors' missing ML-trace jobs to a
-        thread pool; the native batch releases the GIL, so it overlaps
-        other loci's Python while this locus waits its turn.  Identical
-        results to the synchronous path (retrace_rows collects)."""
+    def prefetch_traces(self, pool, n_threads: int = 2,
+                        superset: bool = True):
+        """Submit the current posteriors' missing ML-trace jobs (with
+        `superset`, those of both genotype haplotypes: _trace_plan) to a
+        thread pool, as one native batch of `n_threads` threads (0:
+        align/retrace.trace_threads()); the batch releases the GIL, so it
+        overlaps other loci's Python while this locus waits its turn.  The
+        jobs are marshalled here, so the pool's thread runs the native
+        batch alone and allocates next to nothing.  Identical results to
+        the synchronous path (retrace_rows collects).  Returns the batch's
+        Future (the one already in flight for this haplotype, if any), or
+        None when nothing was left to trace."""
         tf = getattr(self, "_trace_future", None)
         if tf is not None:
             if tf[0] is self.haplotype:
-                return
+                return tf[2]
             # stale prefetch for a haplotype the adaptive loop replaced:
             # wait for it and discard it.  Its native batch reads the
             # pointer caches of haplotype instances the new haplotype may
@@ -1017,13 +1074,16 @@ class SeqStutterGenotyper:
             # may run beside it
             self._collect_trace_future()
         if self.log_aln_probs is None or self.log_post is None:
-            return
-        _, missing = self._trace_plan(superset=True)
+            return None
+        _, missing = self._trace_plan(superset=superset)
         if len(missing) <= 1:
-            return
-        self._trace_future = (
-            self.haplotype, missing,
-            pool.submit(self._run_trace_batch, missing, 2))
+            return None
+        t0 = time.perf_counter()
+        run = self._trace_batch_runner(missing, n_threads)
+        fut = pool.submit(self._tallied_run, run, len(missing), "prefetched",
+                          time.perf_counter() - t0)
+        self._trace_future = (self.haplotype, missing, fut)
+        return fut
 
     def _collect_trace_future(self) -> None:
         tf = getattr(self, "_trace_future", None)
@@ -1033,7 +1093,10 @@ class SeqStutterGenotyper:
         hap, missing, fut = tf
         results = fut.result()
         if hap is not self.haplotype or results is None:
-            return   # haplotype changed under the prefetch: discard
+            # haplotype changed under the prefetch: discard
+            if self.trace_tally is not None:
+                self.trace_tally.add("discarded", len(missing))
+            return
         self._install_trace_batch(missing, results)
 
     def retrace_rows(self) -> np.ndarray:

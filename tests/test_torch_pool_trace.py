@@ -8,7 +8,8 @@ utils/timers.py):
 * the workers' totals reach the parent before any "fin" is sent;
 * under torch.profiler the loop's states are ranges of the trace, and with
   no profiler no range is opened;
-* the benchmark's five readers of these timers, on a hand-built record.
+* the benchmark's five readers of these timers, and the two of the
+  workers' ML traces, on a hand-built record.
 
 The pooled runs are one subprocess with a time limit (2 workers, the
 card's EM and fused posteriors forced on as tests/test_torch_workers.py
@@ -29,7 +30,8 @@ from hipstr_tpu_torch.utils.simulate import simulate_locus
 from hipstr_tpu_torch.utils.timers import ProcessTimer
 from strbench.metrics import (build_ms_per_locus, pool_busy_pct,
                               pool_fill_wait_pct, pool_idle_pct,
-                              pool_pipe_wait_pct, worker_idle_pct)
+                              pool_pipe_wait_pct, trace_ms_per_locus,
+                              trace_prefetch_pct, worker_idle_pct)
 
 from test_torch_slice import ONE_THREAD, ROOT, one_torch_thread  # noqa: F401
 
@@ -247,26 +249,36 @@ RECORD = dict(
             "Pool wait fetch": 5.0, "Pool wait idle": 10.0,
             "Pool idle": 15.0, "Worker wall (workers)": 400.0,
             "Worker idle (workers)": 80.0,
-            "Genotyper build (workers)": 36.0})
-# the parent commit's record: none of the new timers
+            "Genotyper build (workers)": 36.0,
+            "ML traces (workers)": 80.0},
+    stats=dict(workers=[
+        dict(trace_jobs_prefetched=900, trace_jobs_main=100,
+             trace_jobs_discarded=10),
+        dict(trace_jobs_prefetched=800, trace_jobs_main=200,
+             trace_jobs_discarded=0)]))
+# the parent commit's record: none of the new timers, and workers'
+# reports without trace jobs
 PARENT_RECORD = dict(
     wall_s=110.0, loci=4000,
     timers={"Worker start": 10.0, "Pool poll": 80.0, "Pool idle": 15.0,
             "Stutter estimation (device)": 6.0,
-            "Worker idle (workers)": 80.0})
+            "Worker idle (workers)": 80.0},
+    stats=dict(workers=[dict(anon_mib=140.0, host_posteriors=0)] * 2))
 
 
 @pytest.mark.parametrize("reader,want", [
     (pool_busy_pct, 18.0), (pool_pipe_wait_pct, 2.0),
     (pool_fill_wait_pct, 60.0), (worker_idle_pct, 20.0),
-    (build_ms_per_locus, 9.0)])
+    (build_ms_per_locus, 9.0), (trace_ms_per_locus, 20.0),
+    (trace_prefetch_pct, 85.0)])
 def test_reader_on_a_hand_built_record(reader, want):
     assert reader.read(RECORD) == pytest.approx(want, rel=1e-12)
 
 
 @pytest.mark.parametrize("reader", [pool_busy_pct, pool_pipe_wait_pct,
                                     pool_fill_wait_pct, worker_idle_pct,
-                                    build_ms_per_locus])
+                                    build_ms_per_locus, trace_ms_per_locus,
+                                    trace_prefetch_pct])
 def test_reader_finds_nothing_on_the_parent(reader):
     assert reader.read(PARENT_RECORD) is None
 

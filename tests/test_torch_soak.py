@@ -94,31 +94,38 @@ def test_trace_prefetch_never_overlaps_a_trace_of_its_locus(tmp_path,
                                                           monkeypatch):
     """A locus's ML-trace prefetch (a pool thread) and any other trace of
     that locus share its haplotype instances' native pointer caches; the
-    batched run must let the prefetch finish first.  The prefetch is
-    slowed down here, so a run that went on beside it (the soak's
-    intermittent crash in the native trace summary) fails every time."""
+    batched run must let the prefetch finish first.  The prefetch's
+    native batch is slowed down here, so a run that went on beside it (the
+    soak's intermittent crash in the native trace summary), or marshalled
+    another batch of the locus beside it, fails every time."""
     import threading
     import time
 
     from hipstr_tpu_torch.parallel import executor
     from hipstr_tpu_torch.pipeline.genotyper import SeqStutterGenotyper
 
-    orig = SeqStutterGenotyper._run_trace_batch
+    orig = SeqStutterGenotyper._trace_batch_runner
     busy, overlaps, prefetches = {}, [], []
 
     def traced(self, missing, n_threads=0):
         if busy.get(id(self)):
             overlaps.append(id(self))
-        busy[id(self)] = True
-        try:
-            if threading.current_thread() is not threading.main_thread():
-                prefetches.append(id(self))
-                time.sleep(0.3)
-            return orig(self, missing, n_threads)
-        finally:
-            busy[id(self)] = False
+        run = orig(self, missing, n_threads)
 
-    monkeypatch.setattr(SeqStutterGenotyper, "_run_trace_batch", traced)
+        def slow_run():
+            if busy.get(id(self)):
+                overlaps.append(id(self))
+            busy[id(self)] = True
+            try:
+                if threading.current_thread() is not threading.main_thread():
+                    prefetches.append(id(self))
+                    time.sleep(0.3)
+                return run()
+            finally:
+                busy[id(self)] = False
+        return slow_run
+
+    monkeypatch.setattr(SeqStutterGenotyper, "_trace_batch_runner", traced)
     d = str(tmp_path)
     soak.generate(d, 2, 4, 20, log=lambda msg: None)
     p = GenotyperPipeline([f"{d}/sim.bam"], f"{d}/sim.fa",

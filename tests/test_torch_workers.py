@@ -5,9 +5,11 @@
   posteriors, and with the device EM forced on in the parent (the flag
   reaches the workers through their spec);
 * every worker reports torch (so CUDA) never loaded, its anonymous
-  memory, and no JAX loaded;
+  memory, no JAX loaded, and trace jobs run on its trace thread;
 * the CLI's pooled run (`--host-workers 2`, host EM in the workers) writes
   the EM anchor tests/data/torch_port_ref_em_f64.vcf;
+* a worker that finds several "ll" replies waiting installs them all,
+  traces ahead, and leaves no thread behind after "fin";
 * a worker that dies ends the run with an error, not a hang;
 * `resolve_host_workers` resolves -1 as the JAX CLI does.
 
@@ -17,13 +19,22 @@ test instead of spending the suite's clock.
 
 import json
 import os
+import queue
 import subprocess
 import sys
+import threading
+from collections import deque
 
 import pytest
 import torch
 
 from hipstr_tpu_torch.cli import resolve_host_workers
+from hipstr_tpu_torch.io.regions import read_regions
+from hipstr_tpu_torch.models.stutter import StutterModel
+from hipstr_tpu_torch.parallel import pool_worker
+from hipstr_tpu_torch.parallel.executor import BatchedAligner, _fetch
+from hipstr_tpu_torch.parallel.workers import _ReadyItem
+from hipstr_tpu_torch.pipeline.processor import Logger, PipelineOptions
 from hipstr_tpu_torch.utils.simdata import (REFERENCE_EM_ARGS,
                                             reference_loci, write_sim)
 from hipstr_tpu_torch.utils.simulate import simulate_locus
@@ -116,6 +127,10 @@ def test_pool_equals_in_process(pool_sim, mode):
     # (these loci's rounds are all at H_pad <= 32)
     host = sum(r["host_posteriors"] for r in res["workers"])
     assert host >= len(bat) if mode == "model" else host == 0
+    # the VCF above came from the overlapped path: every worker ran trace
+    # jobs ahead on its trace thread
+    for report in res["workers"]:
+        assert report["trace_jobs_prefetched"] > 0
 
 
 def test_cli_pool_matches_em_reference(tmp_path):
@@ -128,6 +143,103 @@ def test_cli_pool_matches_em_reference(tmp_path):
                       "--host-workers", "2"] + REFERENCE_EM_ARGS)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert _body(f"{d}/pool.vcf") == _body(REF_EM_VCF)
+
+
+class _BatchPipe:
+    """Both ends of a worker's pipe in one process.  The parent's side
+    puts a batch of messages at once, so the worker's next recv finds the
+    whole batch waiting; the worker's replies go to `replies`."""
+
+    def __init__(self):
+        self.cv = threading.Condition()
+        self.inbox = deque()
+        self.replies = queue.Queue()
+
+    def put_all(self, msgs) -> None:
+        with self.cv:
+            self.inbox.extend(msgs)
+            self.cv.notify()
+
+    def recv(self):
+        with self.cv:
+            self.cv.wait_for(lambda: self.inbox)
+            return self.inbox.popleft()
+
+    def poll(self, timeout=0.0):
+        with self.cv:
+            return bool(self.inbox)
+
+    def send(self, msg) -> None:
+        self.replies.put(msg)
+
+    def close(self) -> None:
+        pass
+
+
+def test_worker_drains_its_replies_and_leaves_no_thread(pool_sim,
+                                                        monkeypatch):
+    """One worker (in a thread of this process) gets its loci's "ll"
+    replies a round at a time, all waiting before it reads the first: it
+    settles every locus with a record, traces ahead on its trace thread,
+    and after "fin" no thread of it is alive."""
+    d = pool_sim
+    # worker_main sets these for its process: keep them to this test
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")
+    monkeypatch.setenv("HIPSTR_TRACE_THREADS", "1")
+    opts = PipelineOptions(min_reads=12, use_unpaired=True, dtype="float64",
+                           def_stutter_model=StutterModel(
+                               0.95, 0.05, 0.05, 0.95, 0.01, 0.01, 2))
+    spec = dict(bam_paths=[f"{d}/sim.bam"], fasta_path=f"{d}/sim.fa",
+                opts=opts, bam_samps=None, bam_libs=None, lib_field="LB",
+                device_post=False, device_em=False)
+    regions = read_regions(f"{d}/regions.bed")
+    before = set(threading.enumerate())
+    pipe = _BatchPipe()
+    worker = threading.Thread(target=pool_worker.worker_main,
+                              args=(pipe, spec), daemon=True)
+    worker.start()
+    aligner = BatchedAligner([torch.device("cpu")], "float64", 4)
+    batch = [("prep", i, r) for i, r in enumerate(regions)]
+    records, widest, traced = {}, 0, 0.0
+    while batch:
+        widest = max(widest, sum(m[0] == "ll" for m in batch))
+        pipe.put_all(batch)
+        waiting = len(batch)          # one "ready" or "settled" each
+        while waiting:
+            msg = pipe.replies.get(timeout=120)
+            if msg[0] == "ready":
+                aligner.add(_ReadyItem(msg[1], msg[2], msg[3], 0))
+            elif msg[0] == "settled":
+                records[msg[1]] = msg[2]
+            elif msg[0] == "timers":
+                traced += msg[2].get("ML traces", 0.0)
+            waiting -= msg[0] in ("ready", "settled")
+        batch = []
+        for chunk, handle in aligner.dispatch_all():
+            LL = _fetch(handle)
+            batch += [("ll", it.order, LL[gi, :it.statics[5], :it.statics[6]])
+                      for gi, it in enumerate(chunk)]
+    pipe.put_all([("fin",)])
+    while True:
+        msg = pipe.replies.get(timeout=120)
+        if msg[0] == "fin":
+            break
+        if msg[0] == "timers":
+            traced += msg[2].get("ML traces", 0.0)
+    # the worker has sent its report: its trace thread is gone already
+    assert not [t for t in threading.enumerate()
+                if t not in before and t is not worker]
+    worker.join(timeout=60)
+    assert not worker.is_alive()
+    assert widest == len(regions) == len(records) == 4
+    assert all(rec is not None for rec in records.values())
+    report = msg[-1]
+    assert report["trace_jobs_prefetched"] > 0
+    # the traces' seconds are handed over as a span, not a timer
+    assert traced + msg[4].get("ML traces", 0.0) > 0
+    assert "ML traces" not in msg[3]
+    assert not [t for t in threading.enumerate()
+                if t not in before and t.is_alive()]
 
 
 def test_dead_worker_fails_the_run(pool_sim):
