@@ -151,8 +151,7 @@ def bench_kernel(device: torch.device, dtype: str, reads_per_sample: int,
                                         post_meta=g.posterior_meta())
     card = local_devices(device)[0]
     aligner = BatchedAligner([card], dtype, batch)
-    chunk = [LocusWorkItem(region, g, arrays, statics, None)
-             for _ in range(batch)]
+    chunk = [LocusWorkItem(arrays, statics) for _ in range(batch)]
     aligner._dispatch_chunk(chunk)           # warm-up
     synchronize(device)
     ms = None

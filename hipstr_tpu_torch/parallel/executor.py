@@ -1,7 +1,8 @@
 """Multi-locus batched execution, each dispatch sharded over the devices.
 
 Counterpart of hipstr_tpu/parallel/executor.py.  The host prepares a wave
-of loci (filters, haplotype generation, pooling, seeds), groups them by
+of loci (filters, haplotype generation, pooling, seeds: each locus's host
+life is pipeline/locus_host.py's, as in a pool's worker), groups them by
 kernel shape, and dispatches every group's read<->haplotype alignment
 (K1 emission + K2 segment forward per orientation, seed combination, and
 on the card the fused posteriors) before fetching any result, so device
@@ -43,13 +44,14 @@ import torch
 from ..device import local_devices, resolve_dtype
 from ..io.regions import read_regions
 from ..io.vcf_write import VCFWriter, build_vcf_header
-from ..models.stutter import StutterModel, write_stutter_models
-from ..ops.em_batched import EMProblem, em_train_batch, pack_problems
+from ..models.stutter import write_stutter_models
+from ..ops.em_batched import em_train_batch, pack_problems
+from ..ops.em_problem import EMProblem
 from ..ops.hmm2 import batched_forward
 from ..ops.posteriors import batched_pool_posteriors
-from ..pipeline.hap_aligner import locus_to_torch, prepare_locus, stack_arrays
-from ..pipeline.vcf_record import build_vcf_record
-from .pool_worker import em_problem
+from ..pipeline.hap_aligner import locus_to_torch
+from ..pipeline.locus_host import LocusHost
+from ..pipeline.locus_pack import stack_arrays
 
 
 def _leaf_shapes(x) -> tuple:
@@ -61,16 +63,15 @@ def _leaf_shapes(x) -> tuple:
 
 
 class LocusWorkItem:
-    def __init__(self, region, genotyper, arrays, statics, chrom_seq,
-                 order=0):
-        self.region = region
-        self.genotyper = genotyper
+    """A locus's round packed for a dispatch (the arrays and statics of
+    pipeline/locus_pack); `order` is its BED index and `rounds` the
+    dispatches it has ridden."""
+
+    def __init__(self, arrays, statics, order=0):
         self.arrays = arrays
         self.statics = statics
-        self.chrom_seq = chrom_seq
         self.order = order
-        self.gen = None   # resumable adaptive loop, created after initial LLs
-        self.rounds = 0   # device dispatches this locus has ridden
+        self.rounds = 0
 
     def shape_key(self):
         # the period is runtime data: groups merge across periods
@@ -109,17 +110,12 @@ class BatchedAligner:
         self.dispatches = 0
         self.card_shards = 0
         self.round_hist: Dict[int, int] = {}
-        self.spec_hits = 0
-        self.spec_misses = 0
 
     def finalize(self, item) -> None:
-        """Record a settled locus's round count and speculation totals."""
+        """Record a settled locus's round count."""
         self.round_hist[item.rounds] = self.round_hist.get(item.rounds, 0) + 1
-        g = item.genotyper
-        self.spec_hits += getattr(g, "spec_hits", 0)
-        self.spec_misses += getattr(g, "spec_misses", 0)
 
-    def log_stats(self) -> None:
+    def log_stats(self, spec_hits: int = 0, spec_misses: int = 0) -> None:
         if self.logger is None or not self.stats:
             return
         for key, (n, real) in sorted(self.stats.items()):
@@ -130,12 +126,11 @@ class BatchedAligner:
             hist = ", ".join(f"{r}: {c}" for r, c in
                              sorted(self.round_hist.items()))
             self.logger.log(f"Device rounds per locus: {{{hist}}}")
-        if self.spec_hits or self.spec_misses:
-            total = self.spec_hits + self.spec_misses
+        if spec_hits or spec_misses:
             self.logger.log(
-                f"Speculation: {self.spec_hits}/{total} allele-addition "
-                f"rounds served by column gather "
-                f"({self.spec_misses} realignment dispatches)")
+                f"Speculation: {spec_hits}/{spec_hits + spec_misses} "
+                f"allele-addition rounds served by column gather "
+                f"({spec_misses} realignment dispatches)")
 
     def add(self, item: LocusWorkItem) -> None:
         self.groups.setdefault(item.shape_key(), []).append(item)
@@ -234,9 +229,6 @@ def solve_em(problems: List[EMProblem], opts, device: torch.device,
     return params, conv
 
 
-FAILED = object()
-
-
 def open_vcf(pipeline, out_vcf: Optional[str], full_command: str):
     """The run's VCF writer, or None without an output path."""
     if not out_vcf:
@@ -311,38 +303,32 @@ def run_batched(pipeline, regions_bed: str, out_vcf: Optional[str],
             next_emit[0] += 1
             pipeline.loci_done = next_emit[0]
 
-    def settle(order, rec=None, viz=None):
-        pending[order] = (rec, viz)
-        drain_pending()
+    items: Dict[int, LocusWorkItem] = {}   # BED index -> its packed round
+    prepared: List[LocusWorkItem] = []     # rounds for the next dispatch
+    # (BED index, EMProblem) of loci whose stutter model the next wave
+    # learns on the device
+    em_staged: List[Tuple[int, EMProblem]] = []
 
-    def emit_record(item):
-        g = item.genotyper
-        pipeline.counters.genotype_success += 1
-        with pipeline.timer.time("VCF record construction"):
-            chrom, pos, text, stats = build_vcf_record(
-                g, pipeline.samples, opts.output)
-        viz = None
-        if pipeline.viz_writer is not None and stats.viz_data is not None:
-            from ..pipeline.viz import visualize_alignments
-            alns_by_sample = {}
-            for s, entries in enumerate(stats.viz_data):
-                if entries:
-                    one = sorted((a for st, a in entries if st == 0),
-                                 key=lambda a: a.start)
-                    two = sorted((a for st, a in entries if st == 1),
-                                 key=lambda a: a.start)
-                    alns_by_sample[g.sample_names[s]] = one + two
-            html = visualize_alignments(
-                alns_by_sample, stats.sample_gb, item.chrom_seq,
-                item.region.chrom, item.region.start, item.region.stop)
-            viz = (item.region.chrom, item.region.start + 1,
-                   item.region.stop, html)
-        settle(item.order, (chrom, pos, text), viz)
-
-    use_device_post = device_post_enabled(device)
-
-    def maybe_post_meta(g):
-        return g.posterior_meta() if use_device_post else None
+    def emit(msg) -> None:
+        """Route a message of the loci's host (pipeline/locus_host)."""
+        tag = msg[0]
+        if tag == "ready":
+            _, idx, arrays, statics = msg
+            item = items.get(idx)
+            if item is None:
+                item = items[idx] = LocusWorkItem(arrays, statics, idx)
+            item.arrays, item.statics = arrays, statics
+            prepared.append(item)
+        elif tag == "em":
+            em_staged.append(msg[1:])
+        elif tag == "settled":
+            idx = msg[1]
+            if idx in items:
+                aligner.finalize(items.pop(idx))
+            pending[idx] = msg[2:]
+            drain_pending()
+        else:
+            pipeline.logger.log(msg[1])
 
     # native trace batches release the GIL; size the pool to spare cores
     trace_pool = cf.ThreadPoolExecutor(
@@ -350,59 +336,17 @@ def run_batched(pipeline, regions_bed: str, out_vcf: Optional[str],
     # fetches start the moment a wave is dispatched, so the copy back
     # overlaps the next wave's host work
     fetch_pool = cf.ThreadPoolExecutor(max_workers=4)
+    host = LocusHost(pipeline, emit, device_em=device_em_enabled(opts, device),
+                     device_post=device_post_enabled(device),
+                     trace_pool=trace_pool, trace_threads=2)
 
-    def install(item, LL, post=None, totals=None) -> None:
-        g = item.genotyper
-        g.set_pool_lls(LL)
-        with pipeline.timer.time("Genotyping (adaptive)"):
-            if post is not None:
-                g.install_posteriors(post, totals)
-            else:
-                g.calc_log_sample_posteriors()
-        g.prefetch_traces(trace_pool)
-
-    def advance(item) -> str:
-        """Step one locus's adaptive loop: 'realign' (item.arrays updated
-        for the new haplotype), 'emit' or 'done'."""
-        g = item.genotyper
-        with pipeline.timer.time("Genotyping (adaptive)"):
-            if item.gen is None:
-                item.gen = g.adaptive_steps(opts.max_haps,
-                                            opts.max_hap_flanks,
-                                            opts.min_flank_freq)
-            try:
-                next(item.gen)
-            except StopIteration as stop:
-                aligner.finalize(item)
-                if stop.value:
-                    g.prefetch_traces(trace_pool)
-                    return "emit"
-                pipeline.counters.genotype_fail += 1
-                settle(item.order)
-                return "done"
-        with pipeline.timer.time("Locus packing"):
-            seqs, quals, seeds = g.pool_inputs()
-            item.arrays, item.statics = prepare_locus(
-                g.align_haplotype(), seqs, quals, seeds, opts.dtype,
-                post_meta=maybe_post_meta(g),
-                read_cache=g.__dict__.setdefault("_read_pack_cache", {}))
-        return "realign"
-
-    def submit_fetch(handles):
+    def dispatch():
+        """Dispatch the rounds packed so far; their fetches start at once."""
+        for item in prepared:
+            aligner.add(item)
+        prepared.clear()
         return [(chunk, fetch_pool.submit(_fetch, res))
-                for chunk, res in handles]
-
-    def host_step(item, fn, *args):
-        """Run one per-locus host step; a host error fails only the locus
-        (and returns FAILED)."""
-        try:
-            return fn(item, *args)
-        except Exception as exc:
-            aligner.finalize(item)
-            pipeline.counters.genotype_fail += 1
-            settle(item.order)
-            pipeline.logger.log(f"ERROR at {item.region}: {exc!r}")
-            return FAILED
+                for chunk, res in aligner.dispatch_all()]
 
     def finish_handles(handles) -> None:
         """Resolve in-flight fetches and drive every adaptive round of the
@@ -410,138 +354,44 @@ def run_batched(pipeline, regions_bed: str, out_vcf: Optional[str],
         while handles:
             with pipeline.timer.time("Device fetch"):
                 handles = [(chunk, fut.result()) for chunk, fut in handles]
-            ready: List[LocusWorkItem] = []
+            installed: List[int] = []
             for chunk, res in handles:
-                if isinstance(res, tuple):
-                    LL_all, post_all, tot_all = res
-                else:
-                    LL_all, post_all, tot_all = res, None, None
+                LL_all, *post = res if isinstance(res, tuple) else (res,)
                 for gi, item in enumerate(chunk):
                     P_real, H_real = item.statics[5], item.statics[6]
-                    post = tot = None
-                    if post_all is not None:
-                        S = item.genotyper.num_samples
-                        A = item.genotyper.num_alleles
-                        post = post_all[gi, :S, :A, :A]
-                        tot = tot_all[gi, :S]
-                    if host_step(item, install, LL_all[gi, :P_real, :H_real],
-                                 post, tot) is not FAILED:
-                        ready.append(item)
-            realign: List[LocusWorkItem] = []
-            emit_q: List[LocusWorkItem] = []
-            for item in ready:
-                r = host_step(item, advance)
-                if r == "realign":
-                    realign.append(item)
-                elif r == "emit":
-                    emit_q.append(item)
-            for item in emit_q:
-                host_step(item, emit_record)
-            for item in realign:
-                aligner.add(item)
-            handles = submit_fetch(aligner.dispatch_all())
+                    if host.install(item.order, LL_all[gi, :P_real, :H_real],
+                                    *(x[gi] for x in post)):
+                        installed.append(item.order)
+            finished = [idx for idx in installed if host.step(idx)]
+            for idx in finished:
+                host.record(idx)
+            handles = dispatch()
 
-    prepared: List[LocusWorkItem] = []
+    em_stats = EMStats()
     in_flight: List[Tuple[List[LocusWorkItem], object]] = []
 
-    def stage_locus(g, region, local_chrom_seq, order) -> None:
-        with pipeline.timer.time("Locus packing"):
-            seqs, quals, seeds = g.pool_inputs()
-            if not seqs:
-                pipeline.counters.genotype_fail += 1
-                settle(order)
-                return
-            arrays, statics = prepare_locus(
-                g.align_haplotype(), seqs, quals, seeds, opts.dtype,
-                post_meta=maybe_post_meta(g),
-                read_cache=g.__dict__.setdefault("_read_pack_cache", {}))
-        prepared.append(
-            LocusWorkItem(region, g, arrays, statics, local_chrom_seq, order))
-
-    em_device = device_em_enabled(opts, device)
-    em_stats = EMStats()
-    # (order, region, prepared reads, EMProblem, chrom_seq) of loci whose
-    # stutter model the next wave learns on the device
-    em_staged: List[Tuple[int, object, object, EMProblem, str]] = []
-
-    def solve_staged_em() -> None:
-        """Learn every staged locus's stutter model in one call (reference
-        train loop src/em_stutter_genotyper.cpp:170-226), then finish their
-        host preparation; a device error ends the run, a host error fails
-        the locus."""
-        nonlocal em_staged
-        if not em_staged:
-            return
-        staged, em_staged = em_staged, []
-        with pipeline.timer.time("Stutter estimation (device)"):
-            params, conv = solve_em([s[3] for s in staged], opts, device,
-                                    em_stats)
-        for i, (order, region, prep, _prob, local_seq) in enumerate(staged):
-            try:
-                if not conv[i]:
-                    pipeline.counters.em_fail += 1
-                    pipeline.logger.log(f"Stutter EM failed for {region}")
-                    settle(order)
-                    continue
-                model = StutterModel(*params[i], region.period)
-                pipeline.register_learned_model(region, model)
-                if opts.skip_genotyping:
-                    settle(order)
-                    continue
-                g = pipeline.finish_prepare(prep, region, local_seq, model)
-                if g is None:
-                    settle(order)
-                    continue
-                stage_locus(g, region, local_seq, order)
-            except Exception as exc:
-                pipeline.counters.genotype_fail += 1
-                settle(order)
-                pipeline.logger.log(f"ERROR at {region}: {exc!r}")
-
     def launch_wave():
-        """Learn the staged stutter models, dispatch the prepared loci, then
-        settle the previous wave while this one computes."""
-        nonlocal prepared, in_flight
-        solve_staged_em()
-        for item in prepared:
-            aligner.add(item)
-        prepared = []
-        handles = submit_fetch(aligner.dispatch_all())
-        done, in_flight = in_flight, handles
+        """Learn the staged stutter models (reference train loop
+        src/em_stutter_genotyper.cpp:170-226), dispatch the prepared loci,
+        then settle the previous wave while this one computes."""
+        nonlocal in_flight
+        if em_staged:
+            staged = em_staged[:]
+            em_staged.clear()
+            with pipeline.timer.time("Stutter estimation (device)"):
+                params, conv = solve_em([prob for _, prob in staged], opts,
+                                        device, em_stats)
+            for i, (idx, _) in enumerate(staged):
+                host.resume(idx, params[i], conv[i])
+        done, in_flight = in_flight, dispatch()
         finish_handles(done)
 
-    chrom = None
-    chrom_seq = None
     try:
         for order, region in enumerate(regions):
-            if region.stop - region.start > opts.max_str_len:
-                pipeline.counters.too_long += 1
-                settle(order)
-                continue
-            if region.chrom != chrom:
-                chrom = region.chrom
-                chrom_seq = pipeline.fasta.get_sequence(chrom)
             pipeline.logger.log(f"Preparing region {region} ...")
-            # host preparation errors fail the locus; the device wave below
-            # runs outside this handler, so device errors end the run
-            try:
-                if em_device:
-                    staged = em_problem(pipeline, region, chrom_seq)
-                    if staged is None:
-                        settle(order)
-                        continue
-                    em_staged.append((order, region, *staged, chrom_seq))
-                else:
-                    g = pipeline.prepare_locus_genotyper(region, chrom_seq)
-                    if g is None:
-                        settle(order)
-                        continue
-                    stage_locus(g, region, chrom_seq, order)
-            except Exception as exc:
-                pipeline.counters.genotype_fail += 1
-                settle(order)
-                pipeline.logger.log(f"ERROR at {region}: {exc!r}")
-                continue
+            # host errors fail the locus; the device wave below runs
+            # outside the host, so device errors end the run
+            host.begin(order, region)
             if len(prepared) + len(em_staged) >= batch_size:
                 launch_wave()
 
@@ -552,11 +402,11 @@ def run_batched(pipeline, regions_bed: str, out_vcf: Optional[str],
         trace_pool.shutdown(wait=False)
         fetch_pool.shutdown(wait=False)
     drain_pending()
-    aligner.log_stats()
+    aligner.log_stats(host.spec_hits, host.spec_misses)
     pipeline.last_run_stats = dict(
         round_hist={int(k): int(v) for k, v in aligner.round_hist.items()},
-        spec_hits=int(aligner.spec_hits),
-        spec_misses=int(aligner.spec_misses),
+        spec_hits=int(host.spec_hits),
+        spec_misses=int(host.spec_misses),
         dispatches=int(aligner.dispatches),
         card_shards=int(aligner.card_shards), cards=len(set(devices)),
         shards_per_dispatch=len(devices),

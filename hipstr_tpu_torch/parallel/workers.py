@@ -78,18 +78,12 @@ from .executor import (BatchedAligner, EMStats, LocusWorkItem, close_outputs,
 from .pool_worker import worker_main
 
 
-def add_worker_timers(pipeline, totals: Dict[str, float]) -> None:
-    """Add a worker's handed-over timer totals to the parent's, each under
-    "<name> (workers)"."""
-    for name, secs in totals.items():
-        pipeline.timer.add_time(f"{name} (workers)", secs)
-
-
-def add_worker_spans(pipeline, spans: Dict[str, float]) -> None:
-    """Add a worker's handed-over spans (seconds of a piece of work on any
-    of its threads, beside its timers' partition of its wall) to the
-    parent's timers, each under "<name> (workers)"."""
-    for name, secs in spans.items():
+def add_worker_timers(pipeline, totals: Dict[str, float],
+                      spans: Dict[str, float]) -> None:
+    """Add a worker's handed-over timer totals and spans (seconds of a
+    piece of work on any of its threads, beside its timers' partition of
+    its wall) to the parent's timers, each under "<name> (workers)"."""
+    for name, secs in (*totals.items(), *spans.items()):
         pipeline.timer.add_time(f"{name} (workers)", secs)
 
 
@@ -99,7 +93,7 @@ class _ReadyItem(LocusWorkItem):
     its BED index and `worker` the worker that owns it."""
 
     def __init__(self, idx: int, arrays, statics, worker: int):
-        super().__init__(None, None, arrays, statics, None, order=idx)
+        super().__init__(arrays, statics, order=idx)
         self.worker = worker
 
 
@@ -212,8 +206,7 @@ def run_pooled(pipeline, regions_bed: str, out_vcf: Optional[str], device,
         elif tag == "log":
             pipeline.logger.log(msg[1])
         elif tag == "timers":
-            add_worker_timers(pipeline, msg[1])
-            add_worker_spans(pipeline, msg[2])
+            add_worker_timers(pipeline, msg[1], msg[2])
         else:
             raise RuntimeError(f"worker {w} sent {tag!r}")
 
@@ -395,8 +388,7 @@ def run_pooled(pipeline, regions_bed: str, out_vcf: Optional[str], device,
                         getattr(pipeline.counters, f.name)
                         + getattr(counters, f.name))
             pipeline._stutter_out.update(stutter_out)
-            add_worker_timers(pipeline, timer_totals)
-            add_worker_spans(pipeline, spans)
+            add_worker_timers(pipeline, timer_totals, spans)
             reports.append(report)
         for c in conns:
             c.close()

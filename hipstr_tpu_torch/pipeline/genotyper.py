@@ -3,8 +3,9 @@ trace of a locus runs beside its ML-trace prefetch (`prefetch_traces`
 waits for a stale one, `summary_stats_for` collects one in flight), since
 both fill the same unlocked native pointer caches.  Besides, a genotyper
 given a `TraceTally` counts its native trace batches' seconds and jobs
-there; `prefetch_traces` takes the batch's thread count and whether it
-traces the superset, and marshals the batch on the calling thread.
+there; `prefetch_traces` takes the batch's thread count, prefetches
+each read's ML-haplotype trace alone, and marshals the batch on the
+calling thread.
 
 Per-locus sequence-based stutter genotyping orchestration.
 
@@ -954,18 +955,12 @@ class SeqStutterGenotyper:
             cache[pool_idx] = got
         return got
 
-    def _trace_plan(self, superset: bool = False):
+    def _trace_plan(self):
         """(best_haps per read [-1 = no seed], missing (read, cache-key)
         list) for the current posteriors (reference retrace_alignments,
-        seq_stutter_genotyper.cpp:805-841).
-
-        With superset=True the missing list covers BOTH genotype haplotypes
-        of every valid read, not just the ML one — the VCF-stats pass
-        (summary_stats_for) traces reads to the strand-weighted genotype
-        hap, which can differ from the ML pick, and prefetching the
-        superset keeps those off the main thread."""
-        plan = getattr(self, "_plan_cache", None)
-        if plan is None:
+        seq_stutter_genotyper.cpp:805-841)."""
+        best = getattr(self, "_plan_cache", None)
+        if best is None:
             # cached per posterior state (cleared by _invalidate_trace_view)
             haps_a, haps_b = self.get_optimal_haplotypes()
             R = self.num_reads
@@ -975,28 +970,20 @@ class SeqStutterGenotyper:
             v1 = LOG_ONE_HALF + self.log_p1 + self.log_aln_probs[ridx, ha]
             v2 = LOG_ONE_HALF + self.log_p2 + self.log_aln_probs[ridx, hb]
             best = np.where(v1 > v2, ha, hb).astype(np.int64)
-            valid = self.seed_positions >= 0
-            best[~valid] = -1
-            plan = self._plan_cache = (best, ha, hb, valid)
-        best, ha, hb, valid = plan
+            best[self.seed_positions < 0] = -1
+            self._plan_cache = best
 
         # unique (pool, hap) pairs among valid reads not yet in the store
         H = self.num_alleles
-        vi = np.nonzero(valid)[0]
-        if superset:
-            combos = np.concatenate([self.pool_index[vi] * H + ha[vi],
-                                     self.pool_index[vi] * H + hb[vi]])
-            srcs = np.concatenate([vi, vi])
-        else:
-            combos = self.pool_index[vi] * H + best[vi]
-            srcs = vi
+        vi = np.nonzero(best >= 0)[0]
+        combos = self.pool_index[vi] * H + best[vi]
         uniq, first = np.unique(combos, return_index=True)
         missing: List[Tuple[int, Tuple[int, int]]] = []
         rows = self.trace_store.rows
         for u, f in zip(uniq.tolist(), first.tolist()):
             key = (u // H, u % H)
             if key not in rows:
-                missing.append((int(srcs[f]), key))
+                missing.append((int(vi[f]), key))
         return best, missing
 
     def _trace_batch_runner(self, missing, n_threads: int = 0):
@@ -1051,15 +1038,16 @@ class SeqStutterGenotyper:
         else:
             self.trace_store.add_objects(keys, payload)
 
-    def prefetch_traces(self, pool, n_threads: int = 2,
-                        superset: bool = True):
-        """Submit the current posteriors' missing ML-trace jobs (with
-        `superset`, those of both genotype haplotypes: _trace_plan) to a
-        thread pool, as one native batch of `n_threads` threads (0:
-        align/retrace.trace_threads()); the batch releases the GIL, so it
-        overlaps other loci's Python while this locus waits its turn.  The
-        jobs are marshalled here, so the pool's thread runs the native
-        batch alone and allocates next to nothing.  Identical results to
+    def prefetch_traces(self, pool, n_threads: int):
+        """Submit the current posteriors' missing ML-trace jobs (each read's
+        ML haplotype: _trace_plan) to a thread pool, as one native batch of
+        `n_threads` threads (0: align/retrace.trace_threads()); the batch
+        releases the GIL, so it overlaps other loci's Python while this
+        locus waits its turn.  The jobs are marshalled here, so the pool's
+        thread runs the native batch alone and allocates next to nothing.
+        The record's traces differ only in reads its strand tolerance
+        weighs alike (summary_stats_for traces those itself).  Identical
+        results to
         the synchronous path (retrace_rows collects).  Returns the batch's
         Future (the one already in flight for this haplotype, if any), or
         None when nothing was left to trace."""
@@ -1075,7 +1063,7 @@ class SeqStutterGenotyper:
             self._collect_trace_future()
         if self.log_aln_probs is None or self.log_post is None:
             return None
-        _, missing = self._trace_plan(superset=superset)
+        _, missing = self._trace_plan()
         if len(missing) <= 1:
             return None
         t0 = time.perf_counter()

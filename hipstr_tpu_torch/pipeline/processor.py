@@ -27,16 +27,17 @@ from ..align.alignment_data import Alignment, CigarElement
 from ..align.realign import convert_alignment, realign
 from ..io.bam import BamReader
 from ..io.fasta import FastaReader
-from ..io.regions import Region, read_regions
-from ..io.vcf_write import VCFWriter, build_vcf_header
+from ..io.regions import Region
+from ..io.vcf_write import VCFWriter
 from ..models.base_quality import BaseQuality
-from ..models.stutter import StutterModel, read_stutter_models, write_stutter_models
+from ..models.stutter import StutterModel, read_stutter_models
 from ..utils.timers import ProcessTimer
 from ..ops.em import EMStutterGenotyper
 from .adapter_trimmer import AdapterTrimmer
 from .bam_align import BamAlign
 from .genotyper import SeqStutterGenotyper
-from .vcf_record import OutputConfig, build_vcf_record
+from .locus_host import locus_record
+from .vcf_record import OutputConfig
 
 MAX_MATE_DIST = 1000
 
@@ -723,26 +724,10 @@ class GenotyperPipeline:
                                           self.opts.max_hap_flanks,
                                           self.opts.min_flank_freq)
         if genotyped:
-            self.counters.genotype_success += 1
-            with self.timer.time("VCF record construction"):
-                chrom, pos, text, stats = build_vcf_record(
-                    g, self.samples, self.opts.output)
-            vcf_writer.add_vcf_record(chrom, pos, text)
-            if self.viz_writer is not None and stats.viz_data is not None:
-                from .viz import visualize_alignments
-                alns_by_sample = {}
-                for s, entries in enumerate(stats.viz_data):
-                    if entries:
-                        one = sorted((a for st, a in entries if st == 0),
-                                     key=lambda a: a.start)
-                        two = sorted((a for st, a in entries if st == 1),
-                                     key=lambda a: a.start)
-                        alns_by_sample[g.sample_names[s]] = one + two
-                html = visualize_alignments(
-                    alns_by_sample, stats.sample_gb, chrom_seq,
-                    region.chrom, region.start, region.stop)
-                self.viz_writer.add(region.chrom, region.start + 1,
-                                    region.stop, html)
+            rec, viz = locus_record(self, g, region, chrom_seq)
+            vcf_writer.add_vcf_record(*rec)
+            if viz is not None and self.viz_writer is not None:
+                self.viz_writer.add(*viz)
         else:
             self.counters.genotype_fail += 1
 
@@ -902,46 +887,3 @@ class GenotyperPipeline:
             filt_p1s[i].append(p1)
             filt_p2s[i].append(p2)
         return left_alns, filt_p1s, filt_p2s
-
-    # -------------------------------------------------------------------- run
-    def run(self, regions_bed: str, out_vcf: Optional[str],
-            full_command: str = "hipstr-tpu") -> LocusCounters:
-        regions = read_regions(regions_bed, self.opts.max_regions,
-                               self.opts.chrom, self.opts.locus_shard)
-        writer = None
-        if out_vcf:
-            header = build_vcf_header(self.fasta_path, full_command,
-                                      self.fasta.contig_header_lines(),
-                                      self.samples, self.opts.output)
-            writer = VCFWriter(out_vcf, header)
-
-        chrom_seq = None
-        chrom = None
-        for region in regions:
-            if region.stop - region.start > self.opts.max_str_len:
-                self.counters.too_long += 1
-                continue
-            if not self.fasta.has_chrom(region.chrom):
-                raise RuntimeError(f"chromosome {region.chrom} missing from FASTA")
-            if region.chrom != chrom:
-                chrom = region.chrom
-                chrom_seq = self.fasta.get_sequence(chrom)
-            self.logger.log(f"Processing region {region} ...")
-            try:
-                self.analyze_region(region, chrom_seq, writer)
-            except Exception as exc:  # never let one locus kill the run
-                self.counters.genotype_fail += 1
-                self.logger.log(f"ERROR at {region}: {exc!r}")
-
-        if writer is not None:
-            writer.close()
-        if self.viz_writer is not None:
-            self.viz_writer.close()
-        if self.pass_writer is not None:
-            self.pass_writer.close()
-        if self.filt_writer is not None:
-            self.filt_writer.close()
-        if self.opts.stutter_out:
-            with open(self.opts.stutter_out, "w") as fh:
-                write_stutter_models(self._stutter_out, fh)
-        return self.counters

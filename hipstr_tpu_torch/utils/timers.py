@@ -59,6 +59,11 @@ class ProcessTimer:
         self._t_state = 0.0
         self._range = None
 
+    @property
+    def depth(self) -> int:
+        """How many `time` blocks are open."""
+        return self._depth
+
     def add_time(self, name: str, seconds: float) -> None:
         self.totals[name] = self.totals.get(name, 0.0) + seconds
 

@@ -58,6 +58,7 @@ from hipstr_tpu_torch.ops import em_batched
 from hipstr_tpu_torch.ops import posteriors
 from hipstr_tpu_torch.ops.em import EMStutterGenotyper
 from hipstr_tpu_torch.parallel import executor
+from hipstr_tpu_torch.pipeline.locus_host import LocusHost
 from hipstr_tpu_torch.utils.simdata import (COHORT_ANCHOR, COHORT_OVER,
                                             COHORT_WIDE, stutter_rich_args,
                                             stutter_rich_loci,
@@ -104,12 +105,18 @@ class Staged(Exception):
     """Raised in place of the first batched dispatch."""
 
 
-def staged_items(d: str):
-    """The port's batched run on the CPU (float64, fused posteriors'
-    posterior meta packed) up to its first dispatch: every locus's
-    LocusWorkItem as prepare_locus packed it for the first round.  The
-    stutter models come from the host EM, as on the CPU's default path."""
-    items = []
+def first_round_items(argv):
+    """The port's batched run through the CLI (`argv`, on the CPU; the
+    fused posteriors' posterior meta packed) up to its first dispatch:
+    every locus's LocusWorkItem as prepare_locus packed it for the first
+    round, in BED order, each given the `region` and `genotyper` that
+    pipeline/locus_host.py staged it from."""
+    items, loci = [], {}
+    stage = LocusHost._stage
+
+    def recording_stage(host, idx, region, g, chrom_seq):
+        loci[idx] = (region, g)
+        stage(host, idx, region, g, chrom_seq)
 
     def grab(aligner):
         for group in aligner.groups.values():
@@ -117,13 +124,23 @@ def staged_items(d: str):
         raise Staged
 
     with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(LocusHost, "_stage", recording_stage)
         mp.setattr(executor.BatchedAligner, "dispatch_all", grab)
         mp.setattr(executor, "device_post_enabled", lambda dev: True)
         with pytest.raises(Staged):
-            cli.run(stutter_rich_args(d, f"{d}/staged.vcf")
-                    + ["--device", "cpu", "--dtype", "float64",
-                       "--host-workers", "1"])
+            cli.run(argv)
+    for it in items:
+        it.region, it.genotyper = loci[it.order]
     return sorted(items, key=lambda it: it.order)
+
+
+def staged_items(d: str):
+    """first_round_items of the cohort set in `d`, float64 in one process.
+    The stutter models come from the host EM, as on the CPU's default
+    path."""
+    return first_round_items(stutter_rich_args(d, f"{d}/staged.vcf")
+                             + ["--device", "cpu", "--dtype", "float64",
+                                "--host-workers", "1"])
 
 
 @pytest.fixture(scope="module")

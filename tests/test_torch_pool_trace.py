@@ -63,9 +63,9 @@ profiler.record_function.__enter__ = counting_enter
 
 handed = []
 add = workers.add_worker_timers
-def recording_add(pipeline, totals):
+def recording_add(pipeline, totals, spans):
     handed.append(dict(totals))
-    add(pipeline, totals)
+    add(pipeline, totals, spans)
 workers.add_worker_timers = recording_add
 
 state = dict(pipeline=None, at_fin=None)

@@ -56,7 +56,7 @@ from hipstr_tpu_torch.utils.simdata import (SOAK_MODEL_ARGS, SOAK_WIDE,
                                             soak_em_args)
 
 from chip_smoke import DispatchLog, em_problems, locus_buckets
-from test_torch_cohort import Staged, jax_cli
+from test_torch_cohort import first_round_items, jax_cli
 from test_torch_golden_a import card_em_rule
 from test_torch_slice import ROOT, _body, one_torch_thread  # noqa: F401
 
@@ -89,20 +89,8 @@ def first_rounds(d: str):
     """The port's batched run on the CPU (float64, the card's code path)
     up to its first dispatch: every locus's LocusWorkItem as prepare_locus
     packed it from the genotyper's first haplotype set, in BED order."""
-    items = []
-
-    def grab(aligner):
-        for group in aligner.groups.values():
-            items.extend(group)
-        raise Staged
-
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(executor.BatchedAligner, "dispatch_all", grab)
-        mp.setattr(executor, "device_post_enabled", lambda dev: True)
-        with pytest.raises(Staged):
-            cli.run(soak_em_args(d, f"{d}/staged.vcf") + F64_CPU
-                    + ["--host-workers", "1"])
-    return sorted(items, key=lambda it: it.order)
+    return first_round_items(soak_em_args(d, f"{d}/staged.vcf") + F64_CPU
+                             + ["--host-workers", "1"])
 
 
 def test_anchors_cover_periods_1_to_4():

@@ -87,6 +87,7 @@ def _loads_torch(module: str) -> bool:
     "hipstr_tpu_torch.pipeline.genotyper",
     "hipstr_tpu_torch.pipeline.vcf_record",
     "hipstr_tpu_torch.pipeline.locus_pack",
+    "hipstr_tpu_torch.pipeline.locus_host",
     "hipstr_tpu_torch.ops.posteriors", "hipstr_tpu_torch.ops.em",
     "hipstr_tpu_torch.ops.em_problem", "hipstr_tpu_torch.ops.hmm_containers",
     "hipstr_tpu_torch.utils.timers"])

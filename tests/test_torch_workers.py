@@ -3,7 +3,8 @@
 * run_pooled with 2 workers writes the VCF body (and stutter models) of
   run_batched, in float64 on the CPU: with a fixed model, with the fused
   posteriors, and with the device EM forced on in the parent (the flag
-  reaches the workers through their spec);
+  reaches the workers through their spec); both time a locus's host life
+  (pipeline/locus_host.py) under the same timers;
 * every worker reports torch (so CUDA) never loaded, its anonymous
   memory, no JAX loaded, and trace jobs run on its trace thread;
 * the CLI's pooled run (`--host-workers 2`, host EM in the workers) writes
@@ -84,8 +85,15 @@ c = workers.run_pooled(pool, f"{d}/regions.bed", f"{d}/{mode}_pool.vcf", cpu,
 print(json.dumps(dict(success=c.genotype_success, fail=c.genotype_fail,
                       em_waves=pool.last_run_stats["em_waves"],
                       workers=pool.last_run_stats["workers"],
-                      with_torch=pool.last_run_stats["workers_with_torch"])))
+                      with_torch=pool.last_run_stats["workers_with_torch"],
+                      timers=dict(bat=sorted(bat.timer.totals),
+                                  pool=sorted(pool.timer.totals)))))
 """
+
+# the timers of a locus's host life (pipeline/locus_host.py), whichever
+# run schedules it
+PER_LOCUS = ("Genotyping (adaptive)", "LL install", "Locus packing",
+             "VCF record construction")
 
 
 def _python(args, timeout=180):
@@ -117,6 +125,14 @@ def test_pool_equals_in_process(pool_sim, mode):
     assert open(f"{d}/{mode}_pool.so").read() == \
         open(f"{d}/{mode}_bat.so").read()
     assert (res["em_waves"] > 0) == (mode == "device-em")
+    # both runs time a locus's host life alike (the pooled run's
+    # timers are its workers', under "<name> (workers)")
+    bat_t = [n for n in res["timers"]["bat"] if n in PER_LOCUS]
+    pool_t = [n[:-len(" (workers)")] for n in res["timers"]["pool"]
+              if n.endswith(" (workers)")
+              and n[:-len(" (workers)")] in PER_LOCUS]
+    print("per-locus timers, in-process:", bat_t, "pooled:", pool_t)
+    assert bat_t == pool_t == list(PER_LOCUS)
     assert len(res["workers"]) == 2
     for report in res["workers"]:
         assert not report["torch_loaded"] and not report["jax_loaded"]
